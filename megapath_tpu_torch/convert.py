@@ -1,0 +1,52 @@
+"""State carried across from the reference package.
+
+The aligner has no weights. Its state is the shard text
+(``PackedReference``), the FM index (``FMIndex``) and the scoring and
+seeding parameters. Each package defines its own dataclasses for all
+three, so the reference's objects are mapped field by field, the numpy
+arrays shared as they are. Nothing here imports ``megapath_tpu``: any
+object with the reference's fields will do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+from megapath_tpu_torch.align.engine import AlignEngine
+from megapath_tpu_torch.align.params import AlignParams, MmpParams
+from megapath_tpu_torch.index.fm import FMIndex
+from megapath_tpu_torch.index.pack import PackedReference
+
+
+def align_params_from_reference(p) -> Union[AlignParams, MmpParams]:
+    """Map a reference ``AlignParams`` (or ``MmpParams``) -- any dataclass
+    with the same fields -- to the port's, ``mmp`` and ``extra_rounds``
+    included. Raises TypeError on a field the port does not have."""
+    d = dataclasses.asdict(p)
+    if "mmp" not in d:
+        return MmpParams(**d)
+    d["mmp"] = MmpParams(**d["mmp"])
+    d["extra_rounds"] = tuple(MmpParams(**m) for m in d["extra_rounds"])
+    return AlignParams(**d)
+
+
+def _same_fields(cls, obj):
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def index_from_reference(ref, fm) -> Tuple[PackedReference, FMIndex]:
+    """The reference's ``PackedReference`` and ``FMIndex`` as the port's;
+    the arrays are shared, not copied."""
+    return _same_fields(PackedReference, ref), _same_fields(FMIndex, fm)
+
+
+def engine_from_reference(ref, fm, params, device: torch.device) -> AlignEngine:
+    """The port's engine over the reference's shard and index, with the
+    shard text put on ``device`` once, as uint8."""
+    if not isinstance(params, AlignParams):
+        params = align_params_from_reference(params)
+    ref, fm = index_from_reference(ref, fm)
+    return AlignEngine(ref, fm, params, device=device)

@@ -1,0 +1,79 @@
+"""ctypes wrapper of the hand-written CUDA DP kernel (``csrc/dp_full.cu``).
+
+Port of ``sw_align_full_pallas_t`` (``megapath_tpu/ops/dp_pallas.py``):
+the same contract as the plain ``ops.dp.sw_align_full``, in JAX's layout
+at the public function (reads [C, R], refs [C, W], lengths [C]). The
+kernel launches on the current stream, synchronises nothing and
+allocates nothing; this wrapper checks its inputs, allocates the five
+outputs and raises when the launch is refused.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from megapath_tpu_torch.ops import _build
+from megapath_tpu_torch.ops.dp import DPFullResult, DPParams
+
+# Kernel launches since the last reset; chip_smoke.py zeroes it and reads
+# it back to show that the main path went through the kernel.
+launches = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def sw_align_full_cuda(
+    reads: torch.Tensor,  # uint8 [C, R] on a CUDA device
+    refs: torch.Tensor,  # uint8 [C, W]
+    read_lens: torch.Tensor,  # int32 [C]
+    ref_lens: torch.Tensor,  # int32 [C]
+    params: DPParams = DPParams(),
+) -> DPFullResult:
+    """Forward + backward DP on the card: (score, end, start) per row."""
+    global launches
+    dev = reads.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA DP kernel needs CUDA tensors, got {dev}")
+    _check("reads", reads, torch.uint8, 2, dev)
+    _check("refs", refs, torch.uint8, 2, dev)
+    _check("read_lens", read_lens, torch.int32, 1, dev)
+    _check("ref_lens", ref_lens, torch.int32, 1, dev)
+    C, R = reads.shape
+    W = refs.shape[1]
+    if refs.shape[0] != C or read_lens.shape[0] != C or ref_lens.shape[0] != C:
+        raise ValueError(
+            f"row counts differ: reads {C}, refs {refs.shape[0]}, "
+            f"read_lens {read_lens.shape[0]}, ref_lens {ref_lens.shape[0]}"
+        )
+    if params.gap_open > params.gap_extend:
+        # the in-column gap chain is a prefix max only while opening
+        # costs at least as much as extending (ops/dp.py)
+        raise ValueError(f"gap_open > gap_extend is outside the kernel's contract: {params}")
+    lib = _build.load()
+    if W < 1 or W > lib.mp_dp_full_max_width():
+        raise ValueError(f"window width {W} outside 1..{lib.mp_dp_full_max_width()}")
+    # the kernel writes every row of all five outputs
+    out = torch.empty((5, C), dtype=torch.int32, device=dev)
+    if C == 0:
+        return DPFullResult(*out)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mp_dp_full(
+            reads.data_ptr(), refs.data_ptr(), read_lens.data_ptr(),
+            ref_lens.data_ptr(), *(out[k].data_ptr() for k in range(5)),
+            C, R, W, params.match, params.mismatch, params.gap_open,
+            params.gap_extend, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mp_dp_full launch failed: CUDA error {err}")
+    launches += 1
+    return DPFullResult(*out)

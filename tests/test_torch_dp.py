@@ -1,0 +1,71 @@
+"""The port's plain PyTorch DP against the JAX package's DP.
+
+Same inputs, made with numpy from a seed, go through both; all outputs
+are integers, so every check is exact (tolerance 0). The JAX side runs
+as the JAX package's own tests run it on the CPU: ``sw_align`` through
+XLA, ``sw_align_full_pallas_t`` in interpret mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import edge_batch, planted_batch
+from megapath_tpu.ops import dp as jdp
+from megapath_tpu.ops.dp_pallas import sw_align_full_pallas_t
+from megapath_tpu_torch.ops import dp as tdp
+from megapath_tpu_torch.ops import dp_cuda
+
+FIELDS = ("score", "end_ref", "end_read", "start_ref", "start_read")
+SHAPES = [(16, 48, 164), (16, 100, 192)]
+
+
+def _torch(batch):
+    return [torch.from_numpy(a) for a in batch]
+
+
+def _assert_full_equal(got, want):
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f
+        )
+
+
+@pytest.mark.parametrize("B,R,W", SHAPES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sw_align_matches_jax(seed, B, R, W):
+    batch = planted_batch(np.random.default_rng(seed), B, R, W)
+    want = jdp.sw_align(*batch)
+    got = tdp.sw_align(*_torch(batch))
+    for f in ("score", "end_ref", "end_read"):
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f
+        )
+
+
+@pytest.mark.parametrize("B,R,W", SHAPES)
+@pytest.mark.parametrize("seed", [2, 3])
+def test_sw_align_full_matches_pallas_t(seed, B, R, W):
+    batch = planted_batch(np.random.default_rng(seed), B, R, W)
+    want = sw_align_full_pallas_t(*batch, block_b=16, interpret=True)
+    _assert_full_equal(tdp.sw_align_full(*_torch(batch)), want)
+
+
+@pytest.mark.parametrize("R,W", [(48, 164), (100, 192)])
+def test_edge_batch_matches_pallas_t(R, W):
+    """Zero-length reads, win_len < W and = 0, off-text cells, planted
+    twice, repeats, all mismatches: ties decide end and start."""
+    batch = edge_batch(np.random.default_rng(4), R, W, C=16)
+    want = sw_align_full_pallas_t(*batch, block_b=16, interpret=True)
+    got = tdp.sw_align_full(*_torch(batch))
+    _assert_full_equal(got, want)
+    # the degenerate rows give 0 in all five outputs
+    for row in (0, 2, 7):
+        assert all(int(getattr(got, f)[row]) == 0 for f in FIELDS), row
+
+
+def test_auto_on_cpu_runs_plain_and_launches_nothing():
+    batch = _torch(edge_batch(np.random.default_rng(5), 100, 192, C=16))
+    got = tdp.sw_align_full_auto(*batch)
+    assert dp_cuda.launches == 0
+    _assert_full_equal(got, tdp.sw_align_full(*batch))
