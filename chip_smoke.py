@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's alignment path once on one CUDA card.
+"""Drive the PyTorch port's alignment paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,39 @@ exits non-zero and prints no result line):
 1. device   -- CUDA must be present; prints torch/CUDA versions and the
                card's name and power limit as nvidia-smi gives them.
 2. build    -- compiles ``megapath_tpu_torch/csrc/*.cu`` with nvcc into
-               ``build/kernels/`` and prints the seconds it took.
-3. kernels  -- the CUDA DP kernel against the plain PyTorch version on
-               the card, at the main path's shapes and on an edge batch;
-               all five integer outputs must be equal (tolerance 0).
-               Median times over CUDA events, both sides.
-4. golden   -- the port engine on ``cuda`` over the soap4 fixture must
-               give 0/200 read-end mismatches against the soap4 golden.
-5. slice    -- ``align_pairs`` on the bench's toy workload (4 x 2 Mbp,
-               20,000 pairs x 100 bp, made here as ``bench.py`` makes
-               it): 1 warm-up and 3 timed passes, the kernel's launch
-               count over them, and the hits' digest against the JAX
-               engine's (``tests/fixtures/torch_toy_hits.json``).
+               ``build/kernels/`` (one nvcc per source, all at once) and
+               prints the seconds it took and ptxas' register counts.
+   The toy workload (4 x 2 Mbp, 20,000 pairs x 100 bp, made here as
+   ``bench.py`` makes it, its FM index built on the card) is made next;
+   phases 3 and 5 use it.
+3. kernels  -- each kernel against its plain PyTorch version on the card,
+               every output equal (tolerance 0), median CUDA-event times
+               of both: ``dp_full`` at the main path's shapes and edge
+               batches; ``dp_fwd`` at the graft entry's (256, 128, 256),
+               at (4096, 100, 192) and on an edge batch; ``mmp_seed`` on
+               2 x 4,096 read ends of the toy workload under the default
+               and the exact dials; ``locate`` on every SA row those
+               seeds expand to.
+4. golden   -- the port engine on ``cuda`` over the soap4 fixture, on
+               host and on device seeding: 0/200 read-end mismatches
+               against the soap4 golden on each.
+5. step     -- ``align_step`` and ``pair_align_step`` (the single-chip
+               entry, ``__graft_entry__.entry``'s inputs) on the card:
+               the forward kernel's launches, outputs equal to the plain
+               version's on the CPU.
+6. slice    -- ``align_pairs`` on the toy workload on device seeding: 1
+               warm-up and 3 timed passes split into walk / locate / DP
+               / rest, each kernel's launch count over them, the hits'
+               digest against the JAX device-seeding engine's
+               (``tests/fixtures/torch_toy_hits_devseed.json``); then one
+               pass on host seeding against the JAX host-seeding digest
+               (``tests/fixtures/torch_toy_hits.json``).
+7. large    -- the 512 Mbp shard of ``tools/build_bench_shard.py`` (8 x
+               64 Mbp, seed 23, 20,000 pairs), drawn here, its index
+               built on the card (seconds and peak card memory printed):
+               1 warm-up and 3 timed device-seeding passes; the first
+               2,000 pairs' hits equal the host-seeding engine's; the
+               full hit count printed beside the JAX engine's 40,044.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
@@ -30,8 +51,10 @@ The line before the last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,22 +67,45 @@ import torch
 HERE = Path(__file__).resolve().parent
 FIX = HERE / "tests" / "fixtures"
 
+from megapath_tpu_torch.align import device as tdev  # noqa: E402
+from megapath_tpu_torch.align import seeding_dev  # noqa: E402
 from megapath_tpu_torch.align.engine import AlignEngine  # noqa: E402
 from megapath_tpu_torch.align.output import best_per_seq, format_comment  # noqa: E402
 from megapath_tpu_torch.align.params import AlignParams  # noqa: E402
 from megapath_tpu_torch.index.fm import build_fm_index  # noqa: E402
-from megapath_tpu_torch.index.pack import pack_fasta, pack_fasta_file, pack_reads  # noqa: E402
+from megapath_tpu_torch.index.pack import (  # noqa: E402
+    PackedReference,
+    pack_fasta,
+    pack_fasta_file,
+    pack_reads,
+)
 from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno  # noqa: E402
-from megapath_tpu_torch.ops import _build, dp_cuda  # noqa: E402
+from megapath_tpu_torch.ops import _build, dp_cuda, seed_cuda  # noqa: E402
 from megapath_tpu_torch.ops.dp import (  # noqa: E402
     OFF_TEXT_CODE,
     DPParams,
+    sw_align,
     sw_align_full,
 )
 
-KERNEL_SOURCE = "megapath_tpu_torch/csrc/dp_full.cu"
-KERNEL_REPLACES = "megapath_tpu/ops/dp_pallas.py:248"
+# (source in the repo, the TPU kernel or XLA program it replaces)
+KERNELS = {
+    "dp_full": ("megapath_tpu_torch/csrc/dp_full.cu",
+                "megapath_tpu/ops/dp_pallas.py:248"),
+    "dp_fwd": ("megapath_tpu_torch/csrc/dp_full.cu",
+               "megapath_tpu/ops/dp_pallas.py:27"),
+    "mmp_seed": ("megapath_tpu_torch/csrc/mmp_seed.cu",
+                 "megapath_tpu/align/seeding_jax.py:346"),
+    "locate": ("megapath_tpu_torch/csrc/locate.cu",
+               "megapath_tpu/align/seeding_jax.py:1031"),
+}
 FIELDS = ("score", "end_ref", "end_read", "start_ref", "start_read")
+FWD_FIELDS = ("score", "end_ref", "end_read")
+STEP_FIELDS = ("score", "end_ref", "end_read", "passed")
+SEED_FIELDS = ("offset", "length", "sa_lo", "sa_count", "n_seeds")
+# the JAX engine's full hit count on the 512 Mbp workload (BENCH_r05.json)
+LARGE_JAX_HITS = 40044
+LARGE_GATE_PAIRS = 2000
 
 
 # ----------------------------------------------------------------------
@@ -181,6 +227,67 @@ def toy_workload(
     return ref, fm, reads1, lens, reads2, lens.copy()
 
 
+def large_workload(
+    device: torch.device,
+    n_seqs: int = 8,
+    seq_len: int = 64_000_000,
+    n_pairs: int = 20_000,
+    read_len: int = 100,
+    insert: int = 350,
+    seed: int = 23,
+    lut_k: int = 8,
+    sa_interval: int = 4,
+):
+    """The 512 Mbp bench shard, drawn as ``tools/build_bench_shard.build``
+    draws it (same generator, same order of draws): ``n_seqs`` random
+    sequences of ``seq_len``, an FM index with ``sa_interval`` 4 and an
+    8-mer table built on ``device``, and ``n_pairs`` pairs at the insert
+    size with Poisson(1) substitutions per read. Returns (ref, fm,
+    reads1, lens1, reads2, lens2) as numpy."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n_seqs * seq_len, dtype=np.int64).astype(np.uint8)
+    names = [f"bigseq{i}" for i in range(n_seqs)]
+    ref = PackedReference(
+        codes=codes,
+        names=names,
+        annotations=list(names),
+        offsets=np.arange(n_seqs + 1, dtype=np.int64) * seq_len,
+        ambiguous=np.zeros((0, 2), np.int64),
+    )
+    fm = build_fm_index(codes, sa_interval=sa_interval, lut_k=lut_k, device=device)
+    reads1 = np.zeros((n_pairs, read_len), dtype=np.uint8)
+    reads2 = np.zeros((n_pairs, read_len), dtype=np.uint8)
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    for i in range(n_pairs):
+        p = (i % n_seqs) * seq_len + int(rng.integers(0, seq_len - insert))
+        r1 = codes[p : p + read_len].copy()
+        r2 = comp[codes[p + insert - read_len : p + insert][::-1]].copy()
+        for arr in (r1, r2):
+            for _ in range(int(rng.poisson(1.0))):
+                q = int(rng.integers(0, read_len))
+                arr[q] = (arr[q] + 1 + rng.integers(0, 3)) % 4
+        reads1[i], reads2[i] = r1, r2
+    lens = np.full(n_pairs, read_len, dtype=np.int32)
+    return ref, fm, reads1, lens, reads2, lens.copy()
+
+
+def graft_inputs(device: torch.device):
+    """The single-chip entry's inputs (``__graft_entry__.entry``: the
+    same draws): a 64 kbp shard and C = 256 candidates of L = 128 with
+    W = 256 windows, every other one a real 100 bp match. Returns
+    (ref, reads, lens, starts) tensors on ``device`` and W."""
+    rng = np.random.default_rng(0)
+    N, C, L, W = 1 << 16, 256, 128, 256
+    ref = rng.integers(0, 4, N).astype(np.uint8)
+    reads = rng.integers(0, 4, (C, L)).astype(np.uint8)
+    starts = rng.integers(0, N - W, C).astype(np.int32)
+    for c in range(0, C, 2):
+        p = int(starts[c]) + 20
+        reads[c, :100] = ref[p : p + 100]
+    lens = np.full(C, 100, dtype=np.int32)
+    return [torch.from_numpy(a).to(device) for a in (ref, reads, lens, starts)], W
+
+
 def workload_digest(ref_codes, reads1, lens1, reads2, lens2) -> str:
     """sha256 of the alignment inputs (shard text and read batches)."""
     h = hashlib.sha256()
@@ -273,14 +380,16 @@ def phase_device() -> str:
 def phase_build() -> None:
     secs = _build.build(force=True)
     print(f"[build] nvcc built {_build.LIB_PATH.name} in {secs:.1f} s")
-    # ptxas -v: an entry function's mangled name (dp_full_kernel<CH> is
-    # "dp_full_kernelILi<CH>E"), then its spill and register lines
-    ch = "?"
+    # ptxas -v: an entry function's mangled name (dp_full_kernel<CH, bwd>
+    # is "dp_full_kernelILi<CH>ELb<bwd>E"), then its register line
+    name = "?"
     for ln in _build.LOG_PATH.read_text().splitlines():
-        if "Compiling entry function" in ln and "dp_full_kernelILi" in ln:
-            ch = ln.split("dp_full_kernelILi", 1)[1].split("E", 1)[0]
-        elif "registers" in ln or "spill" in ln:
-            print(f"[build] ptxas CH={ch}: {ln.split('ptxas info    :')[-1].strip()}")
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?", ln)
+            name = m.group(1) + (f"<{','.join(g for g in m.groups()[1:] if g)}>"
+                                 if m.group(2) else "")
+        elif "registers" in ln or "spill stores" in ln and " 0 bytes spill" not in ln:
+            print(f"[build] ptxas {name}: {ln.split('ptxas info    :')[-1].strip()}")
 
 
 def _median_ms(fn, reps: int = 10) -> float:
@@ -298,7 +407,26 @@ def _median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(dev: torch.device, smi: str) -> dict:
+def _max_err(got, want, fields) -> dict:
+    return {
+        f: int((getattr(got, f).long() - getattr(want, f).long()).abs().max())
+        if getattr(got, f).numel() else 0
+        for f in fields
+    }
+
+
+def _hold(tag: str, got, want, fields) -> int:
+    """The largest |kernel - plain| over the outputs; raises unless it
+    is 0 (every output of the kernel equals the plain one)."""
+    torch.cuda.synchronize()
+    errs = _max_err(got, want, fields)
+    if max(errs.values()) != 0:
+        raise AssertionError(f"[kernels] {tag}: kernel != plain, max |err| per output {errs}")
+    return max(errs.values())
+
+
+def kernels_dp(dev: torch.device, smi: str) -> dict:
+    """dp_full and dp_fwd against sw_align_full and sw_align."""
     rng = np.random.default_rng(20261016)
     params = DPParams()
     # the main path's shapes: deep DP at 100 bp (W = 192, CH = 6) and
@@ -319,128 +447,305 @@ def phase_kernels(dev: torch.device, smi: str) -> dict:
         (f"width_w{w}", planted_batch(rng, 256, r, w))
         for r, w in ((30, 64), (60, 128), (250, 384), (400, 512), (600, 768))
     ]
-    worst = 0
-    timing = {}
+    timed = ("deep_dp", "mate_rescue", "deep_dp_150bp", "mate_rescue_80bp")
+    full = {"max_abs_err": 0}
     for tag, batch in cases:
         t = [torch.from_numpy(a).to(dev) for a in batch]
-        got = dp_cuda.sw_align_full_cuda(*t, params)
-        torch.cuda.synchronize()
-        want = sw_align_full(*t, params)
-        errs = {
-            f: int((getattr(got, f).long() - getattr(want, f).long()).abs().max())
-            for f in FIELDS
-        }
-        err = max(errs.values())
-        worst = max(worst, err)
-        if err != 0:
-            raise AssertionError(f"[kernels] {tag}: kernel != plain, max |err| per output {errs}")
+        full["max_abs_err"] = max(full["max_abs_err"], _hold(
+            f"dp_full {tag}", dp_cuda.sw_align_full_cuda(*t, params),
+            sw_align_full(*t, params), FIELDS))
         C, R = batch[0].shape
         W = batch[1].shape[1]
-        line = f"[kernels] {tag} C={C} R={R} W={W}: 5/5 outputs equal (tolerance 0)"
-        if tag in ("deep_dp", "mate_rescue", "deep_dp_150bp", "mate_rescue_80bp"):
+        line = f"[kernels] dp_full {tag} C={C} R={R} W={W}: 5/5 outputs equal (tolerance 0)"
+        if tag in timed:
             ms = _median_ms(lambda: dp_cuda.sw_align_full_cuda(*t, params))
             plain_ms = _median_ms(lambda: sw_align_full(*t, params))
-            timing[tag] = (ms, plain_ms)
+            full.setdefault("ms", ms)
+            full.setdefault("plain_ms", plain_ms)
             line += f"; median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]"
         print(line)
-    ms, plain_ms = timing["deep_dp"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # the forward-only kernel: the graft entry's shape, the deep DP's,
+    # and the contract's corners
+    ref, reads, lens, starts = graft_inputs(dev)[0]
+    wins = tdev.gather_windows(ref, starts, 256)
+    graft = (reads, wins, lens, torch.full_like(lens, 256))
+    fwd_cases = [
+        ("graft", graft),
+        ("deep_dp", [torch.from_numpy(a).to(dev) for a in planted_batch(rng, 4096, 100, 192)]),
+        ("edge_w192", [torch.from_numpy(a).to(dev) for a in edge_batch(rng, 100, 192)]),
+    ]
+    fwd = {"max_abs_err": 0}
+    for tag, t in fwd_cases:
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], _hold(
+            f"dp_fwd {tag}", dp_cuda.sw_align_cuda(*t, params), sw_align(*t, params),
+            FWD_FIELDS))
+        C, R = t[0].shape
+        W = t[1].shape[1]
+        line = f"[kernels] dp_fwd {tag} C={C} R={R} W={W}: 3/3 outputs equal (tolerance 0)"
+        if tag != "edge_w192":
+            ms = _median_ms(lambda: dp_cuda.sw_align_cuda(*t, params))
+            plain_ms = _median_ms(lambda: sw_align(*t, params))
+            fwd.setdefault("ms", ms)
+            fwd.setdefault("plain_ms", plain_ms)
+            line += f"; median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]"
+        print(line)
+    return {"dp_full": full, "dp_fwd": fwd}
+
+
+def kernels_seeding(dev: torch.device, smi: str, toy) -> dict:
+    """mmp_seed and locate against their plain versions on 2 x 4,096
+    read ends of the toy workload (the engine's walker layout)."""
+    ref, fm, reads1, lens1, reads2, lens2 = toy
+    dfm = seeding_dev.DeviceFM.from_host(fm, dev)
+    reads = np.concatenate([reads1[:2048], reads2[:2048]])
+    lens = np.concatenate([lens1[:2048], lens2[:2048]])
+    walkers, wlens = seeding_dev.build_walkers(
+        torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+    )
+    L = reads.shape[1]
+    max_seeds, chg = int(min(16, max(4, L // 16 + 2))), 3 * L + 64
+    base = AlignParams().mmp
+    dials = {
+        "default": base,
+        "exact": dataclasses.replace(base, kill_ratio=0.0, sibling_kill_steps=0),
+    }
+    out = {"mmp_seed": {"max_abs_err": 0}}
+    for tag, mmp in dials.items():
+        args = (dfm, walkers, wlens, mmp, max_seeds, chg, chg)
+        got = seed_cuda.mmp_seed_cuda(*args)
+        want = seeding_dev.mmp_seed_device_plain(*args)
+        err = _hold(f"mmp_seed {tag}", got, want, SEED_FIELDS)
+        out["mmp_seed"]["max_abs_err"] = max(out["mmp_seed"]["max_abs_err"], err)
+        ms = _median_ms(lambda: seed_cuda.mmp_seed_cuda(*args))
+        plain_ms = _median_ms(lambda: seeding_dev.mmp_seed_device_plain(*args), reps=3)
+        print(f"[kernels] mmp_seed {tag} dials: {walkers.shape[0]} walkers x {L}, "
+              f"{int(got.n_seeds.sum())} seeds, 5/5 outputs equal (tolerance 0); "
+              f"median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms (of 3) [{smi}]")
+        if tag == "default":
+            out["mmp_seed"].update(ms=ms, plain_ms=plain_ms)
+            flat = seeding_dev.flatten_seeds(got)
+            rows = seeding_dev.expand_rows(flat.sa_lo, flat.sa_count)
+    got = seed_cuda.locate_cuda(dfm, rows)
+    want = seeding_dev.locate_device_plain(dfm, rows)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err or bool((got < 0).any()):
+        raise AssertionError(f"[kernels] locate: kernel != plain (max |err| {err}) or unresolved rows")
+    ms = _median_ms(lambda: seed_cuda.locate_cuda(dfm, rows))
+    plain_ms = _median_ms(lambda: seeding_dev.locate_device_plain(dfm, rows))
+    print(f"[kernels] locate: {len(rows)} SA rows of those seeds, positions equal "
+          f"(tolerance 0); median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
+    out["locate"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+    return out
 
 
 def phase_golden(dev: torch.device) -> None:
     ref = pack_fasta_file(FIX / "align_genome.fa")
     fm = build_fm_index(ref.codes, sa_interval=8, lut_k=8, device=dev)
-    engine = AlignEngine(ref, fm, AlignParams(), device=dev)
-    bad, n = golden_mismatches(engine)
-    print(f"[golden] soap4 fixture on {dev}: {len(bad)}/{n} read-end mismatches")
-    if bad:
-        raise AssertionError(f"[golden] mismatches vs soap4: {bad[:5]}")
+    for device_seeding in (False, True):
+        engine = AlignEngine(ref, fm, AlignParams(), device=dev,
+                             device_seeding=device_seeding)
+        bad, n = golden_mismatches(engine)
+        path = "device" if device_seeding else "host"
+        print(f"[golden] soap4 fixture on {dev}, {path} seeding: "
+              f"{len(bad)}/{n} read-end mismatches")
+        if bad:
+            raise AssertionError(f"[golden] {path} seeding mismatches vs soap4: {bad[:5]}")
 
 
-def phase_slice(dev: torch.device, smi: str) -> int:
+def zero_counts() -> None:
+    dp_cuda.launches = dp_cuda.fwd_launches = 0
+    seed_cuda.walk_launches = seed_cuda.locate_launches = 0
+
+
+def read_counts() -> dict:
+    return {
+        "dp_full": dp_cuda.launches, "dp_fwd": dp_cuda.fwd_launches,
+        "mmp_seed": seed_cuda.walk_launches, "locate": seed_cuda.locate_launches,
+    }
+
+
+def phase_step(dev: torch.device) -> int:
+    """align_step and pair_align_step on the graft entry's inputs."""
+    (ref, reads, lens, starts), W = graft_inputs(dev)
+    C = reads.shape[0] // 2
+    zero_counts()
+    step = tdev.align_step(ref, reads, lens, starts, W)
+    pair, keep = tdev.pair_align_step(
+        ref, reads[:C], lens[:C], starts[:C], reads[C:], lens[C:], starts[C:], W
+    )
+    torch.cuda.synchronize()
+    launches = read_counts()["dp_fwd"]
+    cpu = [t.cpu() for t in (ref, reads, lens, starts)]
+    want = tdev.align_step(*cpu, W)
+    want_pair, want_keep = tdev.pair_align_step(
+        cpu[0], cpu[1][:C], cpu[2][:C], cpu[3][:C], cpu[1][C:], cpu[2][C:],
+        cpu[3][C:], W,
+    )
+    for tag, got, ref_out in (("align_step", step, want), ("pair_align_step", pair, want_pair)):
+        for f in STEP_FIELDS:
+            if not torch.equal(getattr(got, f).cpu(), getattr(ref_out, f)):
+                raise AssertionError(f"[step] {tag}.{f} differs from the plain version on the CPU")
+    if not torch.equal(keep.cpu(), want_keep):
+        raise AssertionError("[step] pair_align_step keep mask differs from the CPU's")
+    n_pass = int(step.passed.sum())
+    print(f"[step] align_step + pair_align_step at C={reads.shape[0]} L={reads.shape[1]} "
+          f"W={W}: equal to the plain version on the CPU; {n_pass} candidates pass, "
+          f"{int(keep.sum())} pairs kept; forward kernel launches {launches}")
+    if launches <= 0 or n_pass < C // 2:
+        raise AssertionError("[step] the step did not go through the forward kernel "
+                             "or its planted matches did not pass")
+    return launches
+
+
+class Split:
+    """Host-clock time per named stage of a pass, each timed call
+    bracketed by torch.cuda.synchronize() so its device work is its own."""
+
+    def __init__(self):
+        self.t = collections.defaultdict(float)
+
+    def wrap(self, name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.t[name] += time.perf_counter() - t0
+        return run
+
+
+def _timed_passes(engine, batch, n_timed: int, smi: str, tag: str):
+    """1 warm-up and ``n_timed`` passes of align_pairs, each split into
+    walk / locate / DP / rest. Returns (hits of the last pass, launch
+    counts over all passes, median s/pass)."""
+    split = Split()
+    orig = (seeding_dev.mmp_seed_device, seeding_dev.locate_device)
+    seeding_dev.mmp_seed_device = split.wrap("walk", orig[0])
+    seeding_dev.locate_device = split.wrap("locate", orig[1])
+    for name in ("_deep_dp_walk_call", "_device_align_rows",
+                 "_deep_dp_fused_call", "_device_align"):
+        setattr(engine, name, split.wrap("dp", getattr(engine, name)))
+    n_reads = 2 * len(batch[1])
+    try:
+        zero_counts()
+        engine.align_pairs(*batch)  # warm-up
+        passes = []
+        for _ in range(n_timed):
+            split.t.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hits = engine.align_pairs(*batch)
+            torch.cuda.synchronize()
+            passes.append((time.perf_counter() - t, dict(split.t)))
+        counts = read_counts()
+    finally:
+        seeding_dev.mmp_seed_device, seeding_dev.locate_device = orig
+    for dt, sp in passes:
+        rest = dt - sum(sp.values())
+        print(f"[{tag}] pass {dt:.3f} s = {n_reads / dt:.0f} reads/s; walk "
+              f"{sp.get('walk', 0.0):.3f} s, locate {sp.get('locate', 0.0):.3f} s, "
+              f"DP {sp.get('dp', 0.0):.3f} s, rest {rest:.3f} s")
+    med = statistics.median(dt for dt, _ in passes)
+    print(f"[{tag}] median of {n_timed}: {n_reads / med:.0f} reads/s ({med:.3f} s/pass), "
+          f"hits={len(hits)} [{smi}]")
+    print(f"[{tag}] kernel launches over the {n_timed + 1} passes: {counts}")
+    return hits, counts, med
+
+
+def _check_digest(tag: str, hits, want: dict) -> None:
+    got = hits_digest(hits)
+    if len(hits) != want["n_hits"] or got != want["hits_sha256"]:
+        raise AssertionError(
+            f"[{tag}] hits differ from the JAX engine's: {len(hits)} hits, "
+            f"digest {got[:16]} vs {want['n_hits']} hits, {want['hits_sha256'][:16]}"
+        )
+    print(f"[{tag}] hits digest equals the JAX engine's ({got[:16]}, {len(hits)} hits)")
+
+
+def make_toy(dev: torch.device):
     want = json.loads((FIX / "torch_toy_hits.json").read_text())
     t0 = time.perf_counter()
-    ref, fm, reads1, lens1, reads2, lens2 = toy_workload(dev)
-    print(f"[slice] toy workload ready in {time.perf_counter() - t0:.1f} s: "
+    toy = toy_workload(dev)
+    ref, fm, reads1, lens1, reads2, lens2 = toy
+    print(f"[toy] workload ready in {time.perf_counter() - t0:.1f} s: "
           f"{ref.total_len} bp, {len(lens1)} pairs x {reads1.shape[1]} bp")
     got_in = workload_digest(ref.codes, reads1, lens1, reads2, lens2)
     if got_in != want["input_sha256"]:
         raise AssertionError(
-            f"[slice] the workload's inputs differ from the fixture's "
+            f"[toy] the workload's inputs differ from the fixture's "
             f"({got_in[:16]} vs {want['input_sha256'][:16]}): numpy's "
             f"generator drifted, this is not a port fault"
         )
+    return toy
 
-    engine = AlignEngine(ref, fm, AlignParams(), device=dev)
-    split = collections.defaultdict(float)
 
-    def timed(name, fn):
-        def run(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                split[name] += time.perf_counter() - t
-        return run
+def phase_slice(dev: torch.device, smi: str, toy) -> dict:
+    ref, fm, *batch = toy
+    engine = AlignEngine(ref, fm, AlignParams(), device=dev, device_seeding=True)
+    hits, counts, _ = _timed_passes(engine, batch, 3, smi, "slice")
+    for k in ("dp_full", "mmp_seed", "locate"):
+        if counts[k] <= 0:
+            raise AssertionError(f"[slice] the main path never launched {k}")
+    _check_digest("slice", hits, json.loads((FIX / "torch_toy_hits_devseed.json").read_text()))
+    host = AlignEngine(ref, fm, AlignParams(), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hits = host.align_pairs(*batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    print(f"[slice] host seeding, one pass: {dt:.3f} s = {2 * len(batch[1]) / dt:.0f} "
+          f"reads/s [{smi}]")
+    _check_digest("slice host", hits, json.loads((FIX / "torch_toy_hits.json").read_text()))
+    return counts
 
-    # host seed = walk + locate + decode; device DP = upload, kernel
-    # launches and the one pull of each DP call; the rest is pairing
-    # and host bookkeeping
-    engine.seed_positions = timed("seed", engine.seed_positions)
-    engine._deep_dp_fused_call = timed("dp", engine._deep_dp_fused_call)
-    engine._device_align = timed("dp", engine._device_align)
 
-    dp_cuda.launches = 0
-    engine.align_pairs(reads1, lens1, reads2, lens2)  # warm-up
-    passes = []
-    for _ in range(3):
-        split.clear()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        hits = engine.align_pairs(reads1, lens1, reads2, lens2)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        passes.append((dt, dict(split)))
-    launches = dp_cuda.launches
-
-    n_reads = 2 * len(lens1)
-    for dt, sp in passes:
-        print(
-            f"[slice] pass {dt:.3f} s = {n_reads / dt:.0f} reads/s; "
-            f"host seed {sp.get('seed', 0.0):.3f} s, device DP "
-            f"{sp.get('dp', 0.0):.3f} s, rest "
-            f"{dt - sp.get('seed', 0.0) - sp.get('dp', 0.0):.3f} s"
-        )
-    med = statistics.median(dt for dt, _ in passes)
-    print(f"[slice] median of 3: {n_reads / med:.0f} reads/s ({med:.3f} s/pass), "
-          f"hits={len(hits)} [{smi}]")
-    print(f"[slice] DP kernel launches over the 4 passes: {launches}")
-    if launches <= 0:
-        raise AssertionError("[slice] the main path never launched the DP kernel")
-    got = hits_digest(hits)
-    if len(hits) != want["n_hits"] or got != want["hits_sha256"]:
+def phase_large(dev: torch.device, smi: str) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref, fm, *batch = large_workload(dev)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[large] {ref.total_len} bp shard, {len(batch[1])} pairs: drawn and indexed "
+          f"in {build_s:.1f} s (suffix array and tables on the card), card peak "
+          f"{peak:.2f} GiB [{smi}]")
+    engine = AlignEngine(ref, fm, AlignParams(), device=dev, device_seeding=True)
+    hits, counts, _ = _timed_passes(engine, batch, 3, smi, "large")
+    print(f"[large] hits {len(hits)} (the JAX engine logged {LARGE_JAX_HITS} on this "
+          f"workload, BENCH_r05.json)")
+    sub = [a[:LARGE_GATE_PAIRS] for a in batch]
+    want = AlignEngine(ref, fm, AlignParams(), device=dev).align_pairs(*sub)
+    got = engine.align_pairs(*sub)
+    if not np.array_equal(canonical_hits(got), canonical_hits(want)):
         raise AssertionError(
-            f"[slice] hits differ from the JAX engine's: {len(hits)} hits, "
-            f"digest {got[:16]} vs {want['n_hits']} hits, "
-            f"{want['hits_sha256'][:16]}"
+            f"[large] the first {LARGE_GATE_PAIRS} pairs' hits differ between device "
+            f"and host seeding: {len(got)} vs {len(want)} hits"
         )
-    print(f"[slice] hits digest equals the JAX engine's ({got[:16]}, {len(hits)} hits)")
-    return launches
+    print(f"[large] the first {LARGE_GATE_PAIRS} pairs: device-seeding hits equal the "
+          f"host-seeding engine's ({len(got)} hits)")
 
 
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    k = phase_kernels(dev, smi)
+    toy = make_toy(dev)
+    timing = kernels_dp(dev, smi)
+    timing.update(kernels_seeding(dev, smi, toy))
     phase_golden(dev)
-    launches = phase_slice(dev, smi)
-    print(json.dumps({"kernels": [{
-        "name": "dp_full", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-    }]}))
+    launches = {"dp_fwd": phase_step(dev)}
+    counts = phase_slice(dev, smi, toy)
+    launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
+    phase_large(dev, smi)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": timing[name]["max_abs_err"],
+         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+        for name, (src, rep) in KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

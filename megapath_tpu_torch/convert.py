@@ -43,10 +43,13 @@ def index_from_reference(ref, fm) -> Tuple[PackedReference, FMIndex]:
     return _same_fields(PackedReference, ref), _same_fields(FMIndex, fm)
 
 
-def engine_from_reference(ref, fm, params, device: torch.device) -> AlignEngine:
+def engine_from_reference(
+    ref, fm, params, device: torch.device, device_seeding: bool = False
+) -> AlignEngine:
     """The port's engine over the reference's shard and index, with the
-    shard text put on ``device`` once, as uint8."""
+    shard text (and, on device seeding, the FM tables) put on ``device``
+    once."""
     if not isinstance(params, AlignParams):
         params = align_params_from_reference(params)
     ref, fm = index_from_reference(ref, fm)
-    return AlignEngine(ref, fm, params, device=device)
+    return AlignEngine(ref, fm, params, device=device, device_seeding=device_seeding)

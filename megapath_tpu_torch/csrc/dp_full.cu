@@ -6,6 +6,16 @@
 // computes exactly what it computes: the same scores, the same end and
 // start cells, the same tie rules. The TPU kernel laid 128 candidates on
 // the vector lanes and the window on sublanes; that layout is not copied.
+// Its row-major twin `_dp_full_kernel` (dp_pallas.py:111, reached through
+// `sw_align_full_pallas`) has the same contract and needs no kernel of
+// its own here.
+//
+// Compiled with the backward pass left out (kBwd = false, `mp_dp_fwd`),
+// the same kernel replaces the forward-only Pallas kernel `_dp_kernel`
+// (dp_pallas.py:27, reached through `sw_align_pallas` :496 and
+// `sw_align_auto`, megapath_tpu/ops/dp.py:120): score, end_ref and
+// end_read under the same forward tie rules (strict > across columns, the
+// lowest row within a column).
 //
 // What bounds it on this card: the integer ALU and the shuffle rate. A
 // cell is ~10 integer operations (two adds, a compare-select for the
@@ -36,6 +46,10 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kNeg = -1000000;  // the reference's -inf surrogate
 constexpr unsigned kFull = 0xffffffffu;
+// The widest window this library takes: 32 lanes x 32 rows, the mate
+// rescue's W = 1024. A wider caller needs a CH = 48 or 64 instantiation,
+// which spills registers at this design's int32 scores.
+constexpr int kMaxWidth = 32 * 32;
 
 struct Scores {
   int match, mismatch, gap_open, gap_extend;
@@ -61,7 +75,7 @@ __device__ __forceinline__ void warp_best(int& s, int& j, int& i) {
   }
 }
 
-template <int CH>
+template <int CH, bool kBwd>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 dp_full_kernel(const uint8_t* __restrict__ reads,
                const uint8_t* __restrict__ refs,
@@ -150,6 +164,14 @@ dp_full_kernel(const uint8_t* __restrict__ reads,
   }
   warp_best<true>(best, best_j, best_i);
   const int end_ref = best_i, end_read = best_j;
+  if constexpr (!kBwd) {
+    if (lane == 0) {
+      score_out[c] = best;
+      end_ref_out[c] = end_ref;
+      end_read_out[c] = end_read;
+    }
+    return;
+  }
 
   // ---------------- backward pass ----------------
   // the mirrored recurrence over read[:end_read] x window[:end_ref]:
@@ -217,7 +239,7 @@ dp_full_kernel(const uint8_t* __restrict__ reads,
   }
 }
 
-template <int CH>
+template <int CH, bool kBwd>
 cudaError_t launch(const uint8_t* reads, const uint8_t* refs,
                    const int32_t* read_lens, const int32_t* ref_lens,
                    int32_t* score, int32_t* end_ref, int32_t* end_read,
@@ -225,31 +247,21 @@ cudaError_t launch(const uint8_t* reads, const uint8_t* refs,
                    int W, Scores sc, cudaStream_t stream) {
   const int blocks = (C + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const size_t smem = (size_t)kWarpsPerBlock * R;
-  dp_full_kernel<CH><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
+  dp_full_kernel<CH, kBwd><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
       reads, refs, read_lens, ref_lens, score, end_ref, end_read, start_ref,
       start_read, C, R, W, sc);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The widest window this library takes: 32 lanes x 32 rows, the mate
-// rescue's W = 1024. A wider caller needs a CH = 48 or 64 instantiation,
-// which spills registers at this design's int32 scores.
-extern "C" int mp_dp_full_max_width() { return 32 * 32; }
-
-// Launches the kernel on `stream`; returns cudaGetLastError() after the
-// launch (0 when the launch was accepted), or cudaErrorInvalidValue for
-// shapes the kernel does not take. Allocates nothing: the caller owns
-// every buffer. All arrays are row-major and contiguous: reads [C, R],
-// refs [C, W] as uint8 codes, the rest int32 [C].
-extern "C" int mp_dp_full(const void* reads, const void* refs,
-                          const void* read_lens, const void* ref_lens,
-                          void* score, void* end_ref, void* end_read,
-                          void* start_ref, void* start_read, int C, int R,
-                          int W, int match, int mismatch, int gap_open,
-                          int gap_extend, void* stream) {
-  if (C <= 0 || R < 0 || W <= 0 || W > mp_dp_full_max_width()) {
+// Picks the instantiation for W: CH = ceil(W/32) rounded up to the next
+// chunk size the library holds.
+template <bool kBwd>
+int dispatch(const void* reads, const void* refs, const void* read_lens,
+             const void* ref_lens, void* score, void* end_ref, void* end_read,
+             void* start_ref, void* start_read, int C, int R, int W,
+             int match, int mismatch, int gap_open, int gap_extend,
+             void* stream) {
+  if (C <= 0 || R < 0 || W <= 0 || W > kMaxWidth) {
     return (int)cudaErrorInvalidValue;
   }
   const Scores sc{match, mismatch, gap_open, gap_extend};
@@ -265,7 +277,7 @@ extern "C" int mp_dp_full(const void* reads, const void* refs,
   auto st = static_cast<cudaStream_t>(stream);
   const int ch = (W + 31) / 32;
 #define MP_LAUNCH(N) \
-  launch<N>(rd, rf, rl, wl, o0, o1, o2, o3, o4, C, R, W, sc, st)
+  launch<N, kBwd>(rd, rf, rl, wl, o0, o1, o2, o3, o4, C, R, W, sc, st)
   if (ch <= 2) return (int)MP_LAUNCH(2);
   if (ch <= 4) return (int)MP_LAUNCH(4);
   if (ch <= 6) return (int)MP_LAUNCH(6);
@@ -275,4 +287,36 @@ extern "C" int mp_dp_full(const void* reads, const void* refs,
   if (ch <= 24) return (int)MP_LAUNCH(24);
   return (int)MP_LAUNCH(32);
 #undef MP_LAUNCH
+}
+
+}  // namespace
+
+extern "C" int mp_dp_full_max_width() { return kMaxWidth; }
+
+// Launches the kernel on `stream`; returns cudaGetLastError() after the
+// launch (0 when the launch was accepted), or cudaErrorInvalidValue for
+// shapes the kernel does not take. Allocates nothing: the caller owns
+// every buffer. All arrays are row-major and contiguous: reads [C, R],
+// refs [C, W] as uint8 codes, the rest int32 [C].
+extern "C" int mp_dp_full(const void* reads, const void* refs,
+                          const void* read_lens, const void* ref_lens,
+                          void* score, void* end_ref, void* end_read,
+                          void* start_ref, void* start_read, int C, int R,
+                          int W, int match, int mismatch, int gap_open,
+                          int gap_extend, void* stream) {
+  return dispatch<true>(reads, refs, read_lens, ref_lens, score, end_ref,
+                        end_read, start_ref, start_read, C, R, W, match,
+                        mismatch, gap_open, gap_extend, stream);
+}
+
+// The forward pass alone: score, end_ref and end_read, as mp_dp_full
+// writes them; the same shapes and return codes.
+extern "C" int mp_dp_fwd(const void* reads, const void* refs,
+                         const void* read_lens, const void* ref_lens,
+                         void* score, void* end_ref, void* end_read, int C,
+                         int R, int W, int match, int mismatch, int gap_open,
+                         int gap_extend, void* stream) {
+  return dispatch<false>(reads, refs, read_lens, ref_lens, score, end_ref,
+                         end_read, nullptr, nullptr, C, R, W, match,
+                         mismatch, gap_open, gap_extend, stream);
 }

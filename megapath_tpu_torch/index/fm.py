@@ -4,9 +4,10 @@ The port's copy of ``megapath_tpu/index/fm.py``, the index the host
 seeding walks: the occurrence table is a flat checkpoint array every
 OCC_BLOCK BWT symbols plus the 2-bit packed BWT, so a rank query is one
 checkpoint gather and a count over at most OCC_BLOCK chars. All queries
-are numpy and batch-first. The build sorts the suffix array on a torch
-device (``index/suffix.py``); the arrays it returns are numpy, equal to
-the reference's (``tests/test_torch_index.py``).
+are numpy and batch-first. The build runs on a torch device (the suffix
+array by prefix doubling, ``index/suffix.py``, and every table after
+it); the arrays it returns are numpy, equal to the reference's
+(``tests/test_torch_index.py``).
 
 Interval convention: half-open [lo, hi) over the n+1 rows of the full
 BWT matrix (row 0 = sentinel suffix). ``count = hi - lo``.
@@ -20,20 +21,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from megapath_tpu_torch.index.suffix import bwt_from_sa, suffix_array
+from megapath_tpu_torch.index.suffix import bwt_from_sa_t, suffix_array_t
 
 OCC_BLOCK = 128  # bwt symbols per occ checkpoint
 WORD_CHARS = 16  # 2-bit chars per uint32 word
 LOOKUP_K = 13  # reference LT k-mer size (2bwt-flex/LT.h:44-49)
-
-
-def _pack_2bit(codes: np.ndarray, pad_to: int) -> np.ndarray:
-    """uint8 codes (0..3) -> uint32 words, 16 chars/word, LSB-first."""
-    buf = np.zeros(pad_to, dtype=np.uint32)
-    buf[: len(codes)] = codes
-    buf = buf.reshape(-1, WORD_CHARS)
-    shifts = (2 * np.arange(WORD_CHARS, dtype=np.uint32))[None, :]
-    return np.bitwise_or.reduce(buf << shifts, axis=1).astype(np.uint32)
 
 
 @dataclass
@@ -139,83 +131,89 @@ def build_fm_index(
     *,
     device: torch.device,
 ) -> FMIndex:
-    """Build the FM-index of a packed reference text; the suffix array
-    is sorted on ``device``, everything else on the host."""
+    """Build the FM-index of a packed reference text on ``device``: the
+    suffix array, the BWT, the occ checkpoints, the sampled SA and the
+    k-mer table are all computed there (a 512 Mbp shard builds in
+    seconds on a card); the arrays returned are numpy."""
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n = len(codes)
-    sa = suffix_array(codes, device)
-    bwt, primary = bwt_from_sa(codes, sa)
+    dev = torch.device(device)
+    text = torch.from_numpy(codes).to(dev)
+    sa = suffix_array_t(text)
+    bwt, primary = bwt_from_sa_t(text, sa)
 
     # counts: C[c] = 1 + #chars < c (sentinel occupies row 0)
     counts = np.zeros(5, dtype=np.int64)
     counts[1:] = np.cumsum(np.bincount(codes, minlength=4))
     counts += 1
 
-    # occ checkpoints over the sentinel-free bwt
+    # occ checkpoints over the sentinel-free bwt; pad cells (code 4)
+    # count as no char
     n_blocks = (n + OCC_BLOCK - 1) // OCC_BLOCK
     pad = n_blocks * OCC_BLOCK
-    onehot = np.zeros((pad, 4), dtype=np.uint32)
-    onehot[np.arange(n), bwt] = 1
-    per_block = onehot.reshape(n_blocks, OCC_BLOCK, 4).sum(axis=1, dtype=np.uint64)
-    occ = np.zeros((n_blocks + 1, 4), dtype=np.uint32)
-    occ[1:] = np.cumsum(per_block, axis=0).astype(np.uint32)
+    padded = torch.full((pad,), 4, dtype=torch.uint8, device=dev)
+    padded[:n] = bwt
+    blocks = padded.view(n_blocks, OCC_BLOCK)
+    occ = torch.zeros((n_blocks + 1, 4), dtype=torch.int64, device=dev)
+    for c in range(4):
+        occ[1:, c] = torch.cumsum((blocks == c).sum(dim=1), 0)
+    padded[n:] = 0  # the packed words hold A past the text, as the reference's
+    shifts = 2 * torch.arange(WORD_CHARS, dtype=torch.int64, device=dev)
+    words = (padded.view(-1, WORD_CHARS).to(torch.int64) << shifts).sum(dim=1)
+    del padded, blocks
 
     # sampled SA: mark full rows whose text position % sa_interval == 0;
     # full row r>0 holds position sa[r-1], row 0 (sentinel) is never marked
-    full_pos = np.empty(n + 1, dtype=np.int64)
+    full_pos = torch.empty(n + 1, dtype=torch.int64, device=dev)
     full_pos[0] = n
     full_pos[1:] = sa
     marked = (full_pos % sa_interval) == 0
     marked[0] = False
-    mark_rank = np.zeros(n + 2, dtype=np.int64)
-    mark_rank[1:] = np.cumsum(marked)
+    mark_rank = torch.zeros(n + 2, dtype=torch.int64, device=dev)
+    mark_rank[1:] = torch.cumsum(marked, 0)
 
     fm = FMIndex(
         n=n,
         primary=primary,
-        bwt_words=_pack_2bit(bwt, pad),
-        occ=occ,
+        bwt_words=words.cpu().numpy().astype(np.uint32),
+        occ=occ.cpu().numpy().astype(np.uint32),
         counts=counts,
-        sa_sampled=full_pos[marked],
-        mark_rank=mark_rank,
+        sa_sampled=full_pos[marked].cpu().numpy(),
+        mark_rank=mark_rank.cpu().numpy(),
         sa_interval=sa_interval,
     )
+    del full_pos, marked, mark_rank
     if lut_k:
-        fm.lut_lo, fm.lut_hi = _build_lut(codes, sa, lut_k)
+        fm.lut_lo, fm.lut_hi = _build_lut(text, sa, lut_k)
         fm.lut_k = lut_k
     return fm
 
 
-def _build_lut(codes: np.ndarray, sa: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+def _build_lut(text: torch.Tensor, sa: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
     """k-mer -> full-row interval [lo, hi), replacing 2bwt-flex LT.
 
     Keys are computed per suffix from its first k chars (A-padded);
     suffixes shorter than k (at most k-1 of them) are then excised from
     their padded bucket since they cannot contain a full k-mer.
     """
-    n = len(codes)
+    n = len(text)
     # key[r] for suffix sa[r]: base-4 big-endian of codes[sa[r] : sa[r]+k]
-    key = np.zeros(n, dtype=np.int64)
+    key = torch.zeros(n, dtype=torch.int64, device=text.device)
     for j in range(k):
         idx = sa + j
-        key = key * 4 + np.where(idx < n, codes[np.minimum(idx, n - 1)], 0)
+        ch = text[idx.clamp_max(n - 1)].to(torch.int64)
+        key = key * 4 + torch.where(idx < n, ch, 0)
     # bucket boundaries among the n suffix rows (full rows 1..n)
-    uniq, cnt = np.unique(key, return_counts=True)
     starts = np.zeros(4**k + 1, dtype=np.int64)
-    np.add.at(starts, uniq + 1, cnt)
-    starts = np.cumsum(starts)
+    starts[1:] = np.cumsum(torch.bincount(key, minlength=4**k).cpu().numpy())
     lo = starts[:-1] + 1  # +1: full rows are suffix rows shifted by sentinel
     hi = starts[1:] + 1
     # excise short suffixes (positions n-1 .. n-k+1) from their buckets
-    short_positions = np.arange(max(0, n - k + 1), n)
-    if len(short_positions):
-        row_of = np.empty(n, dtype=np.int64)
-        row_of[sa] = np.arange(n)
-        for p in short_positions:
-            r = row_of[p]  # suffix row; full row = r+1
-            b = key[r]
-            # short suffixes sort before all full-length members (A-pad
-            # ties break by the implicit sentinel); bump lo past them
-            if lo[b] <= r + 1 < hi[b]:
-                lo[b] = r + 2
+    for p in range(max(0, n - k + 1), n):
+        r = int(torch.nonzero(sa == p)[0, 0])  # suffix row; full row = r+1
+        b = int(key[r])
+        # short suffixes sort before all full-length members (A-pad
+        # ties break by the implicit sentinel); bump lo past them
+        if lo[b] <= r + 1 < hi[b]:
+            lo[b] = r + 2
     return lo.astype(np.uint32), hi.astype(np.uint32)

@@ -3,8 +3,10 @@
 The role ``megapath_tpu/native/build.py`` plays for the host C++ code:
 ``csrc/*.cu`` compile at first use into one shared library with a plain
 C interface, ``build/kernels/libmegapath_kernels.so`` under the checkout
-(``build/`` is git-ignored). The library is rebuilt when a source is
-newer than it. Nothing is built or loaded when this module is imported.
+(``build/`` is git-ignored). Each source compiles in its own nvcc
+process, all started together, and one more nvcc links the objects. The
+library is rebuilt when a source is newer than it. Nothing is built or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ BUILD_DIR = PKG.parent / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libmegapath_kernels.so"
 LOG_PATH = BUILD_DIR / "nvcc.log"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the seed walk's float32 tests must round as the JAX walk rounds them:
+# no multiply-add contraction in that file
+EXTRA_FLAGS = {"mmp_seed.cu": ("-fmad=false",)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,27 +60,44 @@ def stale() -> bool:
 
 def build(force: bool = False) -> float:
     """Compile ``csrc/*.cu`` into ``LIB_PATH`` if it is missing, stale or
-    ``force`` is set. Returns the seconds spent; the compiler's output
+    ``force`` is set. Returns the seconds spent; the compilers' output
     (ptxas register and spill counts) goes to ``LOG_PATH``. Raises
-    RuntimeError when nvcc fails."""
+    RuntimeError when an nvcc fails."""
     if not (force or stale()):
         return 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a temporary name and rename, so a process that loads the
-    # library never sees a half-written file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmpdir) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(src.name, ()), "-c",
+                   "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+            objs.append(str(obj))
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+        if not failed:
+            # link to a temporary name and rename, so a process that loads
+            # the library never sees a half-written file
+            tmp = str(Path(tmpdir) / LIB_PATH.name)
+            cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            else:
+                os.replace(tmp, LIB_PATH)
+        LOG_PATH.write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -86,10 +108,18 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIB_PATH))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mp_dp_full.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.mp_dp_full.restype = ci
+        lib.mp_dp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.mp_dp_fwd.restype = ci
         lib.mp_dp_full_max_width.argtypes = []
         lib.mp_dp_full_max_width.restype = ci
+        lib.mp_mmp_seed.argtypes = (
+            [vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp]
+        )
+        lib.mp_mmp_seed.restype = ci
+        lib.mp_locate.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+        lib.mp_locate.restype = ci
         _lib = lib
     return _lib

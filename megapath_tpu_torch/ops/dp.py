@@ -9,9 +9,10 @@ prefix max of (H_noE[i] + go - i*ge) and the column has no sequential
 dependency.
 
 ``sw_align`` and ``sw_align_full`` are the plain versions: the CPU tests
-run them, and ``chip_smoke.py`` holds the CUDA kernel against them.
-``sw_align_full_auto`` is what the engine calls. It decides by the
-tensors' device: the plain version for CPU tensors, the hand-written
+run them, and ``chip_smoke.py`` holds the CUDA kernels against them.
+``sw_align_full_auto`` (forward + backward, what the engine calls) and
+``sw_align_auto`` (forward only, what ``align_step`` calls) decide by
+the tensors' device: the plain version for CPU tensors, the hand-written
 kernel (``ops/dp_cuda.py``) for CUDA tensors, and never one in place of
 the other.
 """
@@ -141,6 +142,25 @@ def sw_align_full(
         start_ref=fwd.end_ref - rev.end_ref,
         start_read=fwd.end_read - rev.end_read,
     )
+
+
+def sw_align_auto(
+    reads: torch.Tensor,  # uint8 [C, R]
+    refs: torch.Tensor,  # uint8 [C, W]
+    read_lens: torch.Tensor,  # int32 [C]
+    ref_lens: torch.Tensor,  # int32 [C]
+    params: DPParams = DPParams(),
+) -> DPResult:
+    """Forward DP by the tensors' device (``megapath_tpu/ops/dp.py:120``):
+    the plain version on the CPU, the forward-only CUDA kernel on a card
+    (which raises on what it does not take; there is no fallback)."""
+    if reads.device.type == "cpu":
+        return sw_align(reads, refs, read_lens, ref_lens, params)
+    if reads.device.type == "cuda":
+        from megapath_tpu_torch.ops.dp_cuda import sw_align_cuda
+
+        return sw_align_cuda(reads, refs, read_lens, ref_lens, params)
+    raise ValueError(f"no DP for tensors on {reads.device}")
 
 
 def sw_align_full_auto(

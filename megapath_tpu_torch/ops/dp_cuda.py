@@ -1,11 +1,13 @@
-"""ctypes wrapper of the hand-written CUDA DP kernel (``csrc/dp_full.cu``).
+"""ctypes wrappers of the hand-written CUDA DP kernel (``csrc/dp_full.cu``).
 
-Port of ``sw_align_full_pallas_t`` (``megapath_tpu/ops/dp_pallas.py``):
-the same contract as the plain ``ops.dp.sw_align_full``, in JAX's layout
-at the public function (reads [C, R], refs [C, W], lengths [C]). The
-kernel launches on the current stream, synchronises nothing and
-allocates nothing; this wrapper checks its inputs, allocates the five
-outputs and raises when the launch is refused.
+``sw_align_full_cuda`` ports ``sw_align_full_pallas_t`` and
+``sw_align_cuda`` ports ``sw_align_pallas`` (the forward-only
+``_dp_kernel``), both in ``megapath_tpu/ops/dp_pallas.py``: the same
+contracts as the plain ``ops.dp.sw_align_full`` and ``ops.dp.sw_align``,
+in JAX's layout at the public function (reads [C, R], refs [C, W],
+lengths [C]). The kernel launches on the current stream, synchronises
+nothing and allocates nothing; these wrappers check their inputs,
+allocate the outputs and raise when the launch is refused.
 """
 
 from __future__ import annotations
@@ -13,14 +15,18 @@ from __future__ import annotations
 import torch
 
 from megapath_tpu_torch.ops import _build
-from megapath_tpu_torch.ops.dp import DPFullResult, DPParams
+from megapath_tpu_torch.ops.dp import DPFullResult, DPParams, DPResult
 
-# Kernel launches since the last reset; chip_smoke.py zeroes it and reads
-# it back to show that the main path went through the kernel.
-launches = 0
+# Kernel launches since the last reset, one count per entry point;
+# chip_smoke.py zeroes them and reads them back to show that the main
+# path went through the kernels.
+launches = 0  # mp_dp_full
+fwd_launches = 0  # mp_dp_fwd
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, dev) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim``
+    dimensions on ``dev``."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
@@ -31,22 +37,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, dev) -> No
         raise ValueError(f"{name} is not contiguous")
 
 
-def sw_align_full_cuda(
-    reads: torch.Tensor,  # uint8 [C, R] on a CUDA device
-    refs: torch.Tensor,  # uint8 [C, W]
-    read_lens: torch.Tensor,  # int32 [C]
-    ref_lens: torch.Tensor,  # int32 [C]
-    params: DPParams = DPParams(),
-) -> DPFullResult:
-    """Forward + backward DP on the card: (score, end, start) per row."""
-    global launches
+def _check_batch(reads, refs, read_lens, ref_lens, params: DPParams):
+    """Validate one DP batch for the kernel; returns (lib, C, R, W)."""
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA DP kernel needs CUDA tensors, got {dev}")
-    _check("reads", reads, torch.uint8, 2, dev)
-    _check("refs", refs, torch.uint8, 2, dev)
-    _check("read_lens", read_lens, torch.int32, 1, dev)
-    _check("ref_lens", ref_lens, torch.int32, 1, dev)
+    check_tensor("reads", reads, torch.uint8, 2, dev)
+    check_tensor("refs", refs, torch.uint8, 2, dev)
+    check_tensor("read_lens", read_lens, torch.int32, 1, dev)
+    check_tensor("ref_lens", ref_lens, torch.int32, 1, dev)
     C, R = reads.shape
     W = refs.shape[1]
     if refs.shape[0] != C or read_lens.shape[0] != C or ref_lens.shape[0] != C:
@@ -61,6 +60,20 @@ def sw_align_full_cuda(
     lib = _build.load()
     if W < 1 or W > lib.mp_dp_full_max_width():
         raise ValueError(f"window width {W} outside 1..{lib.mp_dp_full_max_width()}")
+    return lib, C, R, W
+
+
+def sw_align_full_cuda(
+    reads: torch.Tensor,  # uint8 [C, R] on a CUDA device
+    refs: torch.Tensor,  # uint8 [C, W]
+    read_lens: torch.Tensor,  # int32 [C]
+    ref_lens: torch.Tensor,  # int32 [C]
+    params: DPParams = DPParams(),
+) -> DPFullResult:
+    """Forward + backward DP on the card: (score, end, start) per row."""
+    global launches
+    lib, C, R, W = _check_batch(reads, refs, read_lens, ref_lens, params)
+    dev = reads.device
     # the kernel writes every row of all five outputs
     out = torch.empty((5, C), dtype=torch.int32, device=dev)
     if C == 0:
@@ -77,3 +90,31 @@ def sw_align_full_cuda(
         raise RuntimeError(f"mp_dp_full launch failed: CUDA error {err}")
     launches += 1
     return DPFullResult(*out)
+
+
+def sw_align_cuda(
+    reads: torch.Tensor,  # uint8 [C, R] on a CUDA device
+    refs: torch.Tensor,  # uint8 [C, W]
+    read_lens: torch.Tensor,  # int32 [C]
+    ref_lens: torch.Tensor,  # int32 [C]
+    params: DPParams = DPParams(),
+) -> DPResult:
+    """Forward DP alone on the card: (score, end_ref, end_read) per row."""
+    global fwd_launches
+    lib, C, R, W = _check_batch(reads, refs, read_lens, ref_lens, params)
+    dev = reads.device
+    out = torch.empty((3, C), dtype=torch.int32, device=dev)
+    if C == 0:
+        return DPResult(*out)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mp_dp_fwd(
+            reads.data_ptr(), refs.data_ptr(), read_lens.data_ptr(),
+            ref_lens.data_ptr(), *(out[k].data_ptr() for k in range(3)),
+            C, R, W, params.match, params.mismatch, params.gap_open,
+            params.gap_extend, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mp_dp_fwd launch failed: CUDA error {err}")
+    fwd_launches += 1
+    return DPResult(*out)

@@ -32,6 +32,7 @@ from megapath_tpu_torch.convert import (
     align_params_from_reference,
     engine_from_reference,
 )
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 CPU = torch.device("cpu")

@@ -1,5 +1,5 @@
 """The port and the chip smoke import without jax and without the JAX
-package, and without a card the port refuses to run its kernel instead
+package, and without a card the port refuses to run its kernels instead
 of carrying on on the CPU."""
 
 import pathlib
@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from megapath_tpu_torch.ops import _build, dp_cuda
+from megapath_tpu_torch.align.params import MmpParams
+from megapath_tpu_torch.align.seeding_dev import DeviceFM
+from megapath_tpu_torch.ops import _build, dp_cuda, seed_cuda
 from megapath_tpu_torch.ops.dp import DPParams
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -30,10 +32,16 @@ sys.meta_path.insert(0, Block())
 import megapath_tpu_torch
 import megapath_tpu_torch.align
 import megapath_tpu_torch.align.engine
+import megapath_tpu_torch.align.seeding_dev
+from megapath_tpu_torch.align.device import (
+    align_rows_walk, align_step, deep_dp_fused_walk, gather_windows_packed,
+    pair_align_step,
+)
 import megapath_tpu_torch.convert
 import megapath_tpu_torch.index.fm
 import megapath_tpu_torch.io.fastq
 import megapath_tpu_torch.ops.dp_cuda
+import megapath_tpu_torch.ops.seed_cuda
 import chip_smoke
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -67,6 +75,33 @@ def test_kernel_entry_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         dp_cuda.sw_align_full_cuda(*_batch(), DPParams())
     assert dp_cuda.launches == before
+
+
+def test_fwd_kernel_entry_refuses_cpu_tensors():
+    before = dp_cuda.fwd_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dp_cuda.sw_align_cuda(*_batch(), DPParams())
+    assert dp_cuda.fwd_launches == before
+
+
+def _cpu_tables():
+    from megapath_tpu_torch.index.fm import build_fm_index
+
+    codes = np.random.default_rng(1).integers(0, 4, 300).astype(np.uint8)
+    fm = build_fm_index(codes, sa_interval=4, lut_k=4, device=torch.device("cpu"))
+    return DeviceFM.from_host(fm, torch.device("cpu"))
+
+
+def test_seed_kernel_entries_refuse_cpu_tensors():
+    dfm = _cpu_tables()
+    before = (seed_cuda.walk_launches, seed_cuda.locate_launches)
+    walkers = torch.zeros((4, 20), dtype=torch.uint8)
+    lens = torch.full((4,), 20, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        seed_cuda.mmp_seed_cuda(dfm, walkers, lens, MmpParams())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        seed_cuda.locate_cuda(dfm, torch.ones(3, dtype=torch.int32))
+    assert (seed_cuda.walk_launches, seed_cuda.locate_launches) == before
 
 
 def test_engine_on_cuda_refuses_without_cuda():

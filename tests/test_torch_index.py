@@ -20,6 +20,7 @@ from megapath_tpu_torch.index import fm as tfm
 from megapath_tpu_torch.index import pack as tpack
 from megapath_tpu_torch.index import suffix as tsuffix
 from megapath_tpu_torch.io import fastq as tfastq
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 CPU = torch.device("cpu")
@@ -139,4 +140,31 @@ def test_toy_workload_draws_as_bench(monkeypatch, tmp_path):
     assert workload_digest(tref.codes, *treads) == workload_digest(jref.codes, *jreads)
     assert tref.names == jref.names and tref.annotations == jref.annotations
     np.testing.assert_array_equal(tref.offsets, jref.offsets)
+    _fm_equal(tfm_, jfm_)
+
+
+def test_large_workload_draws_as_bench_shard(monkeypatch, tmp_path):
+    """The smoke's 512 Mbp workload builder makes what
+    tools/build_bench_shard.build() makes, here at 8 x 20 kbp and 200
+    pairs (the constants the draws depend on, patched in both)."""
+    import importlib.util
+
+    from chip_smoke import large_workload
+
+    spec = importlib.util.spec_from_file_location(
+        "build_bench_shard", FIX.parents[1] / "tools" / "build_bench_shard.py"
+    )
+    bbs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bbs)
+    monkeypatch.setattr(bbs, "CACHE", str(tmp_path))
+    monkeypatch.setattr(bbs, "BIG_SEQ_LEN", 20_000)
+    monkeypatch.setattr(bbs, "BIG_PAIRS", 200)
+    assert (bbs.BIG_SEQS, bbs.READ_LEN, bbs.INSERT, bbs.SEED) == (8, 100, 350, 23)
+    assert (bbs.LUT_K, bbs.SA_INTERVAL) == (8, 4)
+    jref, jfm_, *jreads = bbs.build(force=True)
+    tref, tfm_, *treads = large_workload(CPU, seq_len=20_000, n_pairs=200)
+    assert workload_digest(tref.codes, *treads) == workload_digest(jref.codes, *jreads)
+    assert tref.names == jref.names and tref.annotations == jref.annotations
+    np.testing.assert_array_equal(tref.offsets, jref.offsets)
+    np.testing.assert_array_equal(tref.ambiguous, jref.ambiguous)
     _fm_equal(tfm_, jfm_)

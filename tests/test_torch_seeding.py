@@ -20,6 +20,7 @@ from megapath_tpu_torch.index import fm as tfm
 from megapath_tpu_torch.align import params as tparams
 from megapath_tpu_torch.align import seeding as tseed
 from megapath_tpu_torch.convert import align_params_from_reference
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 
