@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's alignment paths once on one CUDA card.
+"""Drive the PyTorch port's alignment paths and its MegaPath pipeline once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,9 @@ exits non-zero and prints no result line):
                card's name and power limit as nvidia-smi gives them.
 2. build    -- compiles ``megapath_tpu_torch/csrc/*.cu`` with nvcc into
                ``build/kernels/`` (one nvcc per source, all at once) and
-               prints the seconds it took and ptxas' register counts.
+               prints the seconds it took and ptxas' register and spill
+               counts; compiles the host C++ (``csrc/host/*.cpp``, bbduk
+               and SPIKE) with g++ into ``build/host/``.
    The toy workload (4 x 2 Mbp, 20,000 pairs x 100 bp, made here as
    ``bench.py`` makes it, its FM index built on the card) is made next;
    phases 3 and 5 use it.
@@ -18,7 +21,11 @@ exits non-zero and prints no result line):
                every output equal (tolerance 0), median CUDA-event times
                of both: ``dp_full`` at the main path's shapes and edge
                batches; ``dp_fwd`` at the graft entry's (256, 128, 256),
-               at (4096, 100, 192) and on an edge batch; ``mmp_seed`` on
+               at (4096, 100, 192) and on an edge batch; both at the
+               windows past 1024 rows (W = 1152, the 2 x 250 bp mate
+               rescue; W = 1920, the widest the engine makes; an edge
+               batch at W = 1025), and ``mp_dp_full_max_width()`` ==
+               ``dp_cuda.MAX_WIDTH`` (2048); ``mmp_seed`` on
                2 x 4,096 read ends of the toy workload under the default
                and the exact dials; ``locate`` on every SA row those
                seeds expand to.
@@ -42,8 +49,30 @@ exits non-zero and prints no result line):
                1 warm-up and 3 timed device-seeding passes; the first
                2,000 pairs' hits equal the host-seeding engine's; the
                full hit count printed beside the JAX engine's 40,044.
+8. cascade  -- ``MegaPathPipeline.run_records`` on the real-soap4 cascade
+               fixture (two NT shards), on device and on host seeding:
+               the report byte-identical to ``cascade/cascade.report``,
+               the per-read records equal to ``cascade.lsam.id``.
+9. world    -- every pipeline stage at 2 x 250 bp (``world_workload``:
+               bbduk with the TruSeq table, the hg and ribo filters, two NT
+               shards, mate rescue at W = 1152), on device and on host
+               seeding: both reports, both LSAM.id digests and the five
+               counters equal the JAX pipeline's records
+               (``tests/fixtures/torch_pipeline_reports.json``).
+10. pipeline -- the realistic run: phase 7's 512 Mbp shard as the human
+               filter, ``tools/e2e_eval.py``'s community (22 species + 3
+               decoys x 400 kbp) as the NT shard, its 50,000 pairs plus
+               phase 7's 20,000 as human reads, bbduk on, device seeding.
+               The human filter keeps exactly ``LARGE_HG_KEPT`` (two pairs
+               the walk's step bound cannot seed); the reports and
+               LSAM.id equal the JAX pipeline's over the community and
+               those pairs, every taxon row equals the JAX e2e reports';
+               1 warm-up and 3 timed ``run_records`` calls, the median
+               reads/s and the stage split (bbduk, hg, nt, tail, other).
 
-The line before the last lists the kernels as JSON; the last line is
+Each pipeline phase zeroes the kernels' launch counts before its run and
+fails unless its engines launched the DP (and, on device seeding, the
+walk and the locate). The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
@@ -54,6 +83,7 @@ import collections
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -68,6 +98,7 @@ HERE = Path(__file__).resolve().parent
 FIX = HERE / "tests" / "fixtures"
 
 from megapath_tpu_torch.align import device as tdev  # noqa: E402
+from megapath_tpu_torch.filters.bbduk import build_kmer_ref  # noqa: E402
 from megapath_tpu_torch.align import seeding_dev  # noqa: E402
 from megapath_tpu_torch.align.engine import AlignEngine  # noqa: E402
 from megapath_tpu_torch.align.output import best_per_seq, format_comment  # noqa: E402
@@ -80,6 +111,7 @@ from megapath_tpu_torch.index.pack import (  # noqa: E402
     pack_reads,
 )
 from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno  # noqa: E402
+from megapath_tpu_torch import native  # noqa: E402
 from megapath_tpu_torch.ops import _build, dp_cuda, seed_cuda  # noqa: E402
 from megapath_tpu_torch.ops.dp import (  # noqa: E402
     OFF_TEXT_CODE,
@@ -87,6 +119,9 @@ from megapath_tpu_torch.ops.dp import (  # noqa: E402
     sw_align,
     sw_align_full,
 )
+from megapath_tpu_torch.pipeline.megapath import MegaPathPipeline, PipelineConfig  # noqa: E402
+from megapath_tpu_torch.taxonomy.taxdb import TaxDB  # noqa: E402
+from megapath_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 # (source in the repo, the TPU kernel or XLA program it replaces)
 KERNELS = {
@@ -106,6 +141,17 @@ SEED_FIELDS = ("offset", "length", "sa_lo", "sa_count", "n_seeds")
 # the JAX engine's full hit count on the 512 Mbp workload (BENCH_r05.json)
 LARGE_JAX_HITS = 40044
 LARGE_GATE_PAIRS = 2000
+# pairs of each kind in the world workload; tests/fixtures/
+# make_torch_pipeline_reports.py records the JAX pipeline at this count
+WORLD_PAIRS_PER_KIND = 8
+# the 512 Mbp workload's pairs that the realistic pipeline cell's human
+# filter keeps, on both seeding paths: each end's substitutions lie near
+# the end its productive walker starts from, and the walk spends its
+# charged-step bound (3L + 64, the reference's, seeding.py / seeding_jax.py)
+# on the short matches there before it reaches the 60-65 bp exact segment
+# (with 1,000 steps it seeds them). They reach the NT stage unclassified.
+LARGE_HG_KEPT = (5190, 15363)
+CASCADE = FIX / "cascade"
 
 
 # ----------------------------------------------------------------------
@@ -244,6 +290,21 @@ def large_workload(
     8-mer table built on ``device``, and ``n_pairs`` pairs at the insert
     size with Poisson(1) substitutions per read. Returns (ref, fm,
     reads1, lens1, reads2, lens2) as numpy."""
+    ref, *batch = large_draw(n_seqs, seq_len, n_pairs, read_len, insert, seed)
+    fm = build_fm_index(ref.codes, sa_interval=sa_interval, lut_k=lut_k, device=device)
+    return (ref, fm, *batch)
+
+
+def large_draw(
+    n_seqs: int = 8,
+    seq_len: int = 64_000_000,
+    n_pairs: int = 20_000,
+    read_len: int = 100,
+    insert: int = 350,
+    seed: int = 23,
+):
+    """``large_workload``'s shard text and pairs without its index:
+    (ref, reads1, lens1, reads2, lens2)."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, n_seqs * seq_len, dtype=np.int64).astype(np.uint8)
     names = [f"bigseq{i}" for i in range(n_seqs)]
@@ -254,7 +315,6 @@ def large_workload(
         offsets=np.arange(n_seqs + 1, dtype=np.int64) * seq_len,
         ambiguous=np.zeros((0, 2), np.int64),
     )
-    fm = build_fm_index(codes, sa_interval=sa_interval, lut_k=lut_k, device=device)
     reads1 = np.zeros((n_pairs, read_len), dtype=np.uint8)
     reads2 = np.zeros((n_pairs, read_len), dtype=np.uint8)
     comp = np.array([3, 2, 1, 0], np.uint8)
@@ -268,7 +328,163 @@ def large_workload(
                 arr[q] = (arr[q] + 1 + rng.integers(0, 3)) % 4
         reads1[i], reads2[i] = r1, r2
     lens = np.full(n_pairs, read_len, dtype=np.int32)
-    return ref, fm, reads1, lens, reads2, lens.copy()
+    return ref, reads1, lens, reads2, lens.copy()
+
+
+def human_pairs(reads1, lens1, reads2, lens2, rows=None):
+    """The 512 Mbp workload's pairs as the pipeline's human reads
+    (name ``hg`` + the pair index, quality 'I')."""
+    rows = range(len(lens1)) if rows is None else rows
+    qual = "I" * reads1.shape[1]
+    return [(f"hg{i:06d}", _text(reads1[i, : lens1[i]]), qual,
+             _text(reads2[i, : lens2[i]]), qual) for i in rows]
+
+
+# the TruSeq adapter the world's read-through pairs carry (both packages
+# build their bbduk k-mer table from this one string)
+TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+_COMP = np.array([3, 2, 1, 0], np.uint8)
+
+
+def _text(codes: np.ndarray) -> str:
+    return _ACGT[codes].tobytes().decode()
+
+
+def world_workload(n: int = 8, read_len: int = 250, insert: int = 600, seed: int = 123):
+    """Every stage of the pipeline at 2 x 250 bp. The genomes are
+    ``tests/test_pipeline.py``'s world (seed 123: two NT shards of two
+    species each, a human shard) plus a 3 kb ribosome sequence drawn next
+    from the same generator. The pairs, ``n`` per kind: from each NT
+    species (Poisson(2) substitutions per end), NT pairs whose second end
+    has a substitution every 12th base (no seed survives: mate rescue finds
+    it), human and ribosome pairs (the hg and ribo stages remove them),
+    low-complexity pairs, pairs whose ends run into the TruSeq adapter
+    (kmask), pairs with a '#'-quality tail and a few N bases (quality
+    trim), and random pairs. Returns {"nt": [shard0, shard1], "hg": [...],
+    "ribo": [...]} with a shard as a list of (name, description, codes),
+    and the pairs as (name, seq1, qual1, seq2, qual2)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda k: rng.integers(0, 4, k).astype(np.uint8)  # noqa: E731
+    nt0 = [("NC_000913.1", "Escherichia coli K-12", mk(8000)),
+           ("NC_003197.1", "Salmonella enterica", mk(7000))]
+    nt1 = [("NC_045512.1", "SARS-CoV-2", mk(5000)),
+           ("NC_002645.1", "HCoV-229E", mk(4000))]
+    hg = [("NC_000001.1", "Homo sapiens chr1", mk(9000))]
+    ribo = [("SILVA_1", "", mk(3000))]
+    good = "I" * read_len
+
+    def pair(g, subs=True):
+        p = int(rng.integers(0, len(g) - insert))
+        a = g[p : p + read_len].copy()
+        b = _COMP[g[p + insert - read_len : p + insert][::-1]].copy()
+        if subs:
+            for arr in (a, b):
+                for _ in range(int(rng.poisson(2.0))):
+                    q = int(rng.integers(0, read_len))
+                    arr[q] = (arr[q] + 1 + rng.integers(0, 3)) % 4
+        return a, b
+
+    pairs = []
+    for shard in (nt0, nt1):
+        for acc, _, g in shard:
+            for i in range(n):
+                a, b = pair(g)
+                pairs.append((f"{acc}_{i}", _text(a), good, _text(b), good))
+    for i in range(n):  # the mate only rescue finds
+        a, b = pair(nt0[i % 2][2], subs=False)
+        b[(np.arange(read_len) % 12) == 5] ^= 1
+        pairs.append((f"rescue{i}", _text(a), good, _text(b), good))
+    for tag, g, subs in (("human", hg[0][2], True), ("ribo", ribo[0][2], False)):
+        for i in range(n):
+            a, b = pair(g, subs)
+            pairs.append((f"{tag}{i}", _text(a), good, _text(b), good))
+    for i in range(n):  # low complexity
+        unit = "AT" if i % 2 else "AAC"
+        s = (unit * read_len)[:read_len]
+        pairs.append((f"lowc{i}", s, good, s[::-1], good))
+    for i in range(n):  # read-through into the adapter
+        a, b = pair(nt1[i % 2][2])
+        tail = TRUSEQ + _text(mk(40 - len(TRUSEQ)))
+        pairs.append((f"adapter{i}", _text(a)[:-40] + tail, good,
+                      _text(b)[:-40] + tail, good))
+    for i in range(n):  # low-quality tail and N bases
+        a, b = pair(nt0[i % 2][2])
+        sa = list(_text(a))
+        for q in rng.integers(0, read_len, 3):
+            sa[int(q)] = "N"
+        bad = "I" * (read_len - 60) + "#" * 60
+        pairs.append((f"qtail{i}", "".join(sa), bad, _text(b), bad))
+    for i in range(n):
+        pairs.append((f"random{i}", _text(mk(read_len)), good, _text(mk(read_len)), good))
+    return {"nt": [nt0, nt1], "hg": hg, "ribo": ribo, "pairs": pairs}
+
+
+def e2e_workload(n_pairs: int = 50_000, n_species: int = 22, n_decoys: int = 3,
+                 genome_len: int = 400_000, read_len: int = 100, insert: int = 320,
+                 err: float = 0.005, seed: int = 67):
+    """The simulated community of ``tools/e2e_eval.py`` (``simulate``),
+    drawn in memory by the same generator in the same order: ``n_species``
+    + ``n_decoys`` random genomes, uneven abundance over ~4 orders of
+    magnitude, pairs with ``err`` substitutions per base. Returns (genomes
+    as [(name, codes)], pairs as (name, seq1, qual1, seq2, qual2))."""
+    rng = np.random.default_rng(seed)
+    genomes = [rng.integers(0, 4, genome_len).astype(np.uint8)
+               for _ in range(n_species + n_decoys)]
+    w = np.logspace(0, -3.7, n_species)
+    w /= w.sum()
+    counts = rng.multinomial(n_pairs, w)
+    rows = [sp for sp in range(n_species) for _ in range(counts[sp])]
+    rng.shuffle(rows)
+    qual = "I" * read_len
+    pairs = []
+    for i, sp in enumerate(rows):
+        g = genomes[sp]
+        p = int(rng.integers(0, genome_len - insert))
+        r1 = g[p : p + read_len].copy()
+        r2 = _COMP[g[p + insert - read_len : p + insert][::-1]].copy()
+        for arr in (r1, r2):
+            for _ in range(int(rng.binomial(read_len, err))):
+                q = int(rng.integers(0, read_len))
+                arr[q] = (arr[q] + 1 + rng.integers(0, 3)) % 4
+        pairs.append((f"rd{i:06d}", _text(r1), qual, _text(r2), qual))
+    return [(f"genome{i}", g) for i, g in enumerate(genomes)], pairs
+
+
+def write_e2e_taxonomy(d: Path, n_genomes: int = 25) -> None:
+    """The community's taxonomy files, as ``tools/e2e_eval.write_taxonomy``
+    writes them: one species per genome under one superkingdom."""
+    with open(d / "nodes.dmp", "w") as f:
+        f.write("1\t|\t1\t|\tno rank\t|\t\n")
+        f.write("2\t|\t1\t|\tsuperkingdom\t|\t\n")
+        for i in range(n_genomes):
+            f.write(f"{10+i}\t|\t2\t|\tspecies\t|\t\n")
+    with open(d / "names.dmp", "w") as f:
+        f.write("1\t|\troot\t|\t\t|\tscientific name\t|\n")
+        f.write("2\t|\tBacteria\t|\t\t|\tscientific name\t|\n")
+        for i in range(n_genomes):
+            f.write(f"{10+i}\t|\tSpecies {i}\t|\t\t|\tscientific name\t|\n")
+    with open(d / "acc2tid.map", "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n")
+        for i in range(n_genomes):
+            f.write(f"genome{i}\tgenome{i}.1\t{10+i}\t0\n")
+
+
+def pipeline_record(res) -> dict:
+    """What the pipeline gates compare (either package's PipelineResult):
+    both reports, the sha256 of both LSAM.id texts and the counters."""
+    def sha(recs):
+        return hashlib.sha256("".join(r.to_line() + "\n" for r in recs).encode()).hexdigest()
+
+    return {
+        "report": res.report, "ra_report": res.ra_report,
+        "lsam_sha256": sha(res.lsam_id), "ra_lsam_sha256": sha(res.ra_lsam_id),
+        "counters": {k: getattr(res, k) for k in PIPELINE_COUNTERS},
+    }
+
+
+PIPELINE_COUNTERS = ("n_input_pairs", "n_after_preprocess", "n_after_human",
+                     "spike_removed", "n_after_ribo")
 
 
 def graft_inputs(device: torch.device):
@@ -358,6 +574,99 @@ def golden_mismatches(engine, fix_dir: Path = FIX):
     return bad, 2 * len(r1)
 
 
+def mini_taxdb(fix_dir: Path = FIX) -> TaxDB:
+    """The port's TaxDB over the mini taxonomy of ``tests/fixtures``."""
+    db = TaxDB(size=1024)
+    db.read_nodes(fix_dir / "nodes.dmp")
+    db.read_names(fix_dir / "names.dmp")
+    db.read_acc2tid(fix_dir / "acc2tid.map")
+    return db
+
+
+def fastq_records(pairs):
+    """(recs1, recs2) of the port's FastqRecord from (name, seq1, qual1,
+    seq2, qual2) tuples."""
+    return ([FastqRecord(n, s1, q1) for n, s1, q1, _, _ in pairs],
+            [FastqRecord(n, s2, q2) for n, _, _, s2, q2 in pairs])
+
+
+def pairs_digest(pairs) -> str:
+    h = hashlib.sha256()
+    for p in pairs:
+        h.update("\t".join(p).encode() + b"\n")
+    return h.hexdigest()
+
+
+def cascade_pipeline(dev: torch.device, device_seeding: bool) -> MegaPathPipeline:
+    """The port's pipeline over the real-soap4 cascade fixture's two shards
+    (``tests/test_cascade_parity.py``'s configuration)."""
+    def shard(path):
+        ref = pack_fasta_file(path)
+        return ref, build_fm_index(ref.codes, sa_interval=8, lut_k=8, device=dev)
+
+    cfg = PipelineConfig(read_len=80, skip_preprocess=True, skip_human=True,
+                         device_seeding=device_seeding)
+    return MegaPathPipeline([shard(CASCADE / "shard0.fa"), shard(CASCADE / "shard1.fa")],
+                            mini_taxdb(), config=cfg, device=dev)
+
+
+def cascade_reads():
+    recs1, recs2 = list(read_fastx(CASCADE / "r1.fq")), list(read_fastx(CASCADE / "r2.fq"))
+    for r in recs1 + recs2:
+        r.name = trim_readno(r.name)
+    return recs1, recs2
+
+
+def lsam_id_table(lines) -> dict:
+    """(name, flag) -> (score, set of hit taxids) of LSAM.id lines, as
+    ``tests/test_cascade_parity.py`` compares them."""
+    out = {}
+    for line in lines:
+        c = line.rstrip("\n").split("\t")
+        hits = frozenset(h.split(",")[1] for h in c[5].split(";")) if c[5] != "*" else frozenset()
+        out[(c[0], c[1])] = (int(float(c[2])), hits)
+    return out
+
+
+def world_config(device_seeding: bool) -> PipelineConfig:
+    return PipelineConfig(read_len=250, max_read_len=250, device_seeding=device_seeding)
+
+
+def world_pipeline(world, dev: torch.device, device_seeding: bool) -> MegaPathPipeline:
+    """The port's pipeline over ``world_workload``'s shards: bbduk with the
+    TruSeq table, the hg and ribo filters and two NT shards."""
+    def shard(seqs):
+        ref = pack_fasta([FastqRecord(name, _text(codes), "", desc)
+                          for name, desc, codes in seqs])
+        return ref, build_fm_index(ref.codes, sa_interval=4, lut_k=6, device=dev)
+
+    return MegaPathPipeline(
+        [shard(s) for s in world["nt"]], mini_taxdb(), hg_shard=shard(world["hg"]),
+        adapters=build_kmer_ref([TRUSEQ], k=27, hdist=1),
+        config=world_config(device_seeding), ribo_shard=shard(world["ribo"]), device=dev,
+    )
+
+
+def text_diff(got: str, want: str) -> tuple:
+    """Line counts and the first differing lines of two texts."""
+    g, w = got.splitlines(), want.splitlines()
+    return f"{len(g)} vs {len(w)} lines", [
+        (i, a, b) for i, (a, b) in enumerate(zip(g, w)) if a != b][:5]
+
+
+def record_diff(got: dict, want: dict) -> list:
+    """The fields of two pipeline records that differ, with the first
+    differing report lines."""
+    bad = [(k, *text_diff(got[k], want[k])) for k in ("report", "ra_report")
+           if got[k] != want[k]]
+    for k in ("lsam_sha256", "ra_lsam_sha256"):
+        if got[k] != want[k]:
+            bad.append((k, got[k][:16], want[k][:16]))
+    if got["counters"] != want["counters"]:
+        bad.append(("counters", got["counters"], want["counters"]))
+    return bad
+
+
 # ----------------------------------------------------------------------
 # phases on the card
 # ----------------------------------------------------------------------
@@ -380,6 +689,10 @@ def phase_device() -> str:
 def phase_build() -> None:
     secs = _build.build(force=True)
     print(f"[build] nvcc built {_build.LIB_PATH.name} in {secs:.1f} s")
+    t = time.perf_counter()
+    libs = [native.build(name, force=True).name for name in ("bbduk", "spike")]
+    print(f"[build] g++ built the host libraries {', '.join(libs)} in "
+          f"{time.perf_counter() - t:.1f} s")
     # ptxas -v: an entry function's mangled name (dp_full_kernel<CH, bwd>
     # is "dp_full_kernelILi<CH>ELb<bwd>E"), then its register line
     name = "?"
@@ -426,7 +739,8 @@ def _hold(tag: str, got, want, fields) -> int:
 
 
 def kernels_dp(dev: torch.device, smi: str) -> dict:
-    """dp_full and dp_fwd against sw_align_full and sw_align."""
+    """dp_full and dp_fwd against sw_align_full and sw_align, at every
+    chunk size the library holds (W up to dp_cuda.MAX_WIDTH)."""
     rng = np.random.default_rng(20261016)
     params = DPParams()
     # the main path's shapes: deep DP at 100 bp (W = 192, CH = 6) and
@@ -435,6 +749,19 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
     # a multiple of the block's 4 warps; the contract's corners; and one
     # batch for each other chunk size the library holds (CH = 2, 4, 12,
     # 16, 24: the deep DP of shorter and longer reads)
+    lib = _build.load()
+    if lib.mp_dp_full_max_width() != dp_cuda.MAX_WIDTH:
+        raise AssertionError(f"[kernels] the library takes W <= {lib.mp_dp_full_max_width()}, "
+                             f"dp_cuda.MAX_WIDTH is {dp_cuda.MAX_WIDTH}")
+    print(f"[kernels] mp_dp_full_max_width() == dp_cuda.MAX_WIDTH == {dp_cuda.MAX_WIDTH}")
+    # the windows past 1024 rows (CH = 40-64): the 2x250 mate rescue
+    # (W = 1152), the widest the engine makes (L = 1023: W = 1920) and the
+    # first width past 1024
+    wide = [
+        ("mate_rescue_250bp", planted_batch(rng, 1024, 250, 1152)),
+        ("widest_l1023", planted_batch(rng, 256, 1023, 1920)),
+        ("edge_w1025", edge_batch(rng, 250, 1025)),
+    ]
     cases = [
         ("deep_dp", planted_batch(rng, 4096, 100, 192)),
         ("mate_rescue", planted_batch(rng, 1024, 100, 1024)),
@@ -446,8 +773,11 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
     ] + [
         (f"width_w{w}", planted_batch(rng, 256, r, w))
         for r, w in ((30, 64), (60, 128), (250, 384), (400, 512), (600, 768))
-    ]
-    timed = ("deep_dp", "mate_rescue", "deep_dp_150bp", "mate_rescue_80bp")
+    ] + wide
+    # the plain version's repetitions for each timed case (its widest
+    # call is ~2,000 column steps of small ops)
+    timed = {"deep_dp": 10, "mate_rescue": 10, "deep_dp_150bp": 10,
+             "mate_rescue_80bp": 10, "mate_rescue_250bp": 10, "widest_l1023": 3}
     full = {"max_abs_err": 0}
     for tag, batch in cases:
         t = [torch.from_numpy(a).to(dev) for a in batch]
@@ -459,11 +789,19 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
         line = f"[kernels] dp_full {tag} C={C} R={R} W={W}: 5/5 outputs equal (tolerance 0)"
         if tag in timed:
             ms = _median_ms(lambda: dp_cuda.sw_align_full_cuda(*t, params))
-            plain_ms = _median_ms(lambda: sw_align_full(*t, params))
+            plain_ms = _median_ms(lambda: sw_align_full(*t, params), reps=timed[tag])
             full.setdefault("ms", ms)
             full.setdefault("plain_ms", plain_ms)
-            line += f"; median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]"
+            line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms "
+                     f"(of {timed[tag]}) [{smi}]")
         print(line)
+    t = [torch.from_numpy(a).to(dev) for a in planted_batch(rng, 8, 100, dp_cuda.MAX_WIDTH + 1)]
+    try:
+        dp_cuda.sw_align_full_cuda(*t, params)
+    except ValueError as e:
+        print(f"[kernels] dp_full refuses W = {dp_cuda.MAX_WIDTH + 1}: {e}")
+    else:
+        raise AssertionError(f"[kernels] dp_full took W = {dp_cuda.MAX_WIDTH + 1}")
     # the forward-only kernel: the graft entry's shape, the deep DP's,
     # and the contract's corners
     ref, reads, lens, starts = graft_inputs(dev)[0]
@@ -473,7 +811,7 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
         ("graft", graft),
         ("deep_dp", [torch.from_numpy(a).to(dev) for a in planted_batch(rng, 4096, 100, 192)]),
         ("edge_w192", [torch.from_numpy(a).to(dev) for a in edge_batch(rng, 100, 192)]),
-    ]
+    ] + [(tag, [torch.from_numpy(a).to(dev) for a in batch]) for tag, batch in wide]
     fwd = {"max_abs_err": 0}
     for tag, t in fwd_cases:
         fwd["max_abs_err"] = max(fwd["max_abs_err"], _hold(
@@ -482,12 +820,14 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
         C, R = t[0].shape
         W = t[1].shape[1]
         line = f"[kernels] dp_fwd {tag} C={C} R={R} W={W}: 3/3 outputs equal (tolerance 0)"
-        if tag != "edge_w192":
+        if not tag.startswith("edge"):
+            reps = timed.get(tag, 10)
             ms = _median_ms(lambda: dp_cuda.sw_align_cuda(*t, params))
-            plain_ms = _median_ms(lambda: sw_align(*t, params))
+            plain_ms = _median_ms(lambda: sw_align(*t, params), reps=reps)
             fwd.setdefault("ms", ms)
             fwd.setdefault("plain_ms", plain_ms)
-            line += f"; median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]"
+            line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms "
+                     f"(of {reps}) [{smi}]")
         print(line)
     return {"dp_full": full, "dp_fwd": fwd}
 
@@ -682,7 +1022,7 @@ def make_toy(dev: torch.device):
     return toy
 
 
-def phase_slice(dev: torch.device, smi: str, toy) -> dict:
+def phase_slice(dev: torch.device, smi: str, toy) -> None:
     ref, fm, *batch = toy
     engine = AlignEngine(ref, fm, AlignParams(), device=dev, device_seeding=True)
     hits, counts, _ = _timed_passes(engine, batch, 3, smi, "slice")
@@ -699,10 +1039,9 @@ def phase_slice(dev: torch.device, smi: str, toy) -> dict:
     print(f"[slice] host seeding, one pass: {dt:.3f} s = {2 * len(batch[1]) / dt:.0f} "
           f"reads/s [{smi}]")
     _check_digest("slice host", hits, json.loads((FIX / "torch_toy_hits.json").read_text()))
-    return counts
 
 
-def phase_large(dev: torch.device, smi: str) -> None:
+def phase_large(dev: torch.device, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -726,6 +1065,176 @@ def phase_large(dev: torch.device, smi: str) -> None:
         )
     print(f"[large] the first {LARGE_GATE_PAIRS} pairs: device-seeding hits equal the "
           f"host-seeding engine's ({len(got)} hits)")
+    return ref, fm, batch
+
+
+def _pipeline_records() -> dict:
+    return json.loads((FIX / "torch_pipeline_reports.json").read_text())
+
+
+def _require_launches(tag: str, counts: dict, names) -> None:
+    for k in names:
+        if counts[k] <= 0:
+            raise AssertionError(f"[{tag}] the pipeline never launched {k}: {counts}")
+
+
+def phase_pipeline_cascade(dev: torch.device) -> None:
+    """The real-soap4 cascade golden through the port's pipeline on the
+    card, on device and on host seeding: the report byte-identical, the
+    per-read records equal."""
+    golden = (CASCADE / "cascade.report").read_text()
+    golden_id = lsam_id_table(open(CASCADE / "cascade.lsam.id"))
+    recs1, recs2 = cascade_reads()
+    for device_seeding in (True, False):
+        path = "device" if device_seeding else "host"
+        pipe = cascade_pipeline(dev, device_seeding)
+        zero_counts()
+        res = pipe.run_records(recs1, recs2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _require_launches("cascade", counts, ("dp_full", "mmp_seed", "locate")
+                          if device_seeding else ("dp_full",))
+        ours = lsam_id_table(r.to_line() for r in res.lsam_id)
+        bad = [k for k in golden_id if golden_id[k] != ours.get(k)]
+        if res.report != golden or set(ours) != set(golden_id) or bad:
+            raise AssertionError(
+                f"[cascade] {path} seeding: report equal {res.report == golden}, "
+                f"{len(bad)} per-read records differ: {bad[:5]}")
+        print(f"[cascade] {path} seeding on {dev}: report byte-identical to "
+              f"cascade/cascade.report, {len(ours)} per-read records equal "
+              f"cascade.lsam.id; launches {counts}")
+
+
+def phase_pipeline_world(dev: torch.device, smi: str) -> None:
+    """Every stage at 2 x 250 bp (bbduk with adapters, hg, ribo, two NT
+    shards, mate rescue at W = 1152) against the JAX pipeline's records,
+    on device seeding and on host seeding."""
+    want = _pipeline_records()["world"]
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if pairs_digest(world["pairs"]) != want["input_sha256"]:
+        raise AssertionError("[world] the workload's inputs differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    recs = fastq_records(world["pairs"])
+    for device_seeding, key in ((True, "device_seeding"), (False, "host_seeding")):
+        pipe = world_pipeline(world, dev, device_seeding)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.run_records(*recs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = read_counts()
+        _require_launches("world", counts, ("dp_full", "mmp_seed", "locate")
+                          if device_seeding else ("dp_full",))
+        got = pipeline_record(res)
+        bad = record_diff(got, want[key])
+        if bad:
+            raise AssertionError(f"[world] {key}: differs from the JAX pipeline's record: {bad}")
+        print(f"[world] {key}: {len(recs[0])} pairs x 250 bp in {dt:.3f} s: report, "
+              f"ra_report, both LSAM.id digests and the counters equal the JAX "
+              f"pipeline's ({got['counters']}); launches {counts} [{smi}]")
+
+
+def phase_pipeline_large(dev: torch.device, smi: str, large, n_timed: int = 3) -> dict:
+    """The realistic run: the 512 Mbp shard as the human filter, the e2e
+    community (22 species + 3 decoys x 400 kbp) as the NT shard, its
+    50,000 pairs plus the large workload's 20,000 as human reads; bbduk
+    on. Gates: the human filter keeps exactly the LARGE_HG_KEPT pairs;
+    the reports and LSAM.id equal the JAX pipeline's over the community
+    followed by those pairs, and every taxon row equals the JAX e2e
+    reports'. 1 warm-up and ``n_timed`` timed ``run_records`` calls.
+    Returns the warm-up's kernel launch counts."""
+    import tempfile
+
+    want = _pipeline_records()["e2e"]
+    hg_ref, hg_fm, (reads1, lens1, reads2, lens2) = large
+    t0 = time.perf_counter()
+    genomes, pairs = e2e_workload()
+    if pairs_digest(pairs) != want["input_sha256"]:
+        raise AssertionError("[pipeline] the community's reads differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    nt_ref = pack_fasta(FastqRecord(name, _text(g)) for name, g in genomes)
+    nt_fm = build_fm_index(nt_ref.codes, sa_interval=8, lut_k=8, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        write_e2e_taxonomy(Path(d), len(genomes))
+        db = TaxDB(size=4096)
+        db.read_nodes(Path(d) / "nodes.dmp")
+        db.read_names(Path(d) / "names.dmp")
+        db.read_acc2tid(Path(d) / "acc2tid.map")
+    human = human_pairs(reads1, lens1, reads2, lens2)
+    recs = fastq_records(pairs + human)
+    n_in = len(recs[0])
+    print(f"[pipeline] {len(pairs)} community pairs + {len(human)} human pairs, NT shard "
+          f"{nt_ref.total_len} bp, hg shard {hg_ref.total_len} bp: ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    timer = StageTimer(out=open(os.devnull, "w"))
+    cfg = PipelineConfig(read_len=100, device_seeding=True, max_read_len=100)
+    pipe = MegaPathPipeline([(nt_ref, nt_fm)], db, hg_shard=(hg_ref, hg_fm),
+                            config=cfg, device=dev, timer=timer)
+    runs = []
+    for i in range(1 + n_timed):
+        timer.records.clear()
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.run_records(*recs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = read_counts()
+        if i == 0:
+            launches = counts
+            _require_launches("pipeline", counts, ("dp_full", "mmp_seed", "locate"))
+        check_e2e(res, want, recs, first=i == 0)
+        split = timer.summary()
+        split["other"] = dt - sum(split.values())
+        runs.append(dt)
+        print(f"[pipeline] {'warm-up' if i == 0 else f'run {i}'}: {dt:.3f} s = "
+              f"{2 * n_in / dt:.0f} reads/s; " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in split.items())
+              + f"; launches {counts}")
+    med = statistics.median(runs[1:])
+    print(f"[pipeline] median of {n_timed}: {2 * n_in / med:.0f} reads/s ({med:.3f} s a "
+          f"run of {n_in} pairs); {res.n_after_human} pairs after the human filter: the "
+          f"community's {want['counters']['n_after_preprocess']} and the human pairs "
+          f"{want['hg_kept']}; report, ra_report and LSAM.id equal the JAX pipeline's on "
+          f"that input, every taxon row equal to the JAX e2e reports' [{smi}]")
+    return launches
+
+
+def taxon_rows(report: str) -> list:
+    """A Kraken report's rows without the percentage column and without
+    the unclassified row: the classification's counts."""
+    return [ln.split("\t", 1)[1] for ln in report.splitlines()[2:]]
+
+
+def check_e2e(res, want: dict, recs, first: bool) -> None:
+    """The large pipeline's gates; on a failure, prints what breaks them.
+    ``want`` is the JAX e2e record: the community alone, and under
+    ``with_hg_kept`` followed by the LARGE_HG_KEPT human pairs."""
+    kept = want["with_hg_kept"]
+    bad = [(k, *text_diff(getattr(res, k), kept[k])) for k in ("report", "ra_report")
+           if getattr(res, k) != kept[k]]
+    # the community's own classification: every taxon row equals the
+    # JAX e2e run's (only the unclassified row and the percentages move)
+    bad += [f"{k}: taxon rows differ from the JAX e2e run's" for k in ("report", "ra_report")
+            if taxon_rows(getattr(res, k)) != taxon_rows(want[k])]
+    n_hg = want["counters"]["n_after_preprocess"] + len(want["hg_kept"])
+    if res.n_after_human != n_hg:
+        bad.append(f"n_after_human {res.n_after_human} != {n_hg}")
+    names = []
+    if first or bad:
+        names = [r.name for r in res.lsam_id][::2]
+        if [n for n in names if n.startswith("hg")] != want["hg_kept"]:
+            bad.append("the human pairs kept are not LARGE_HG_KEPT")
+        if pipeline_record(res)["lsam_sha256"] != kept["lsam_sha256"]:
+            bad.append("LSAM.id differs from the JAX record's")
+    if not bad:
+        return
+    kept_hg = [n for n in names if n.startswith("hg")]
+    lost = sorted({r.name for r in recs[0] if r.name.startswith("rd")} - set(names))
+    print(f"[pipeline] gate failed; human pairs kept {len(kept_hg)} {kept_hg[:10]}, "
+          f"community pairs lost {len(lost)} {lost[:10]}")
+    raise AssertionError(f"[pipeline] the large pipeline differs from the JAX e2e run: {bad}")
 
 
 def main() -> int:
@@ -737,9 +1246,12 @@ def main() -> int:
     timing.update(kernels_seeding(dev, smi, toy))
     phase_golden(dev)
     launches = {"dp_fwd": phase_step(dev)}
-    counts = phase_slice(dev, smi, toy)
+    phase_slice(dev, smi, toy)
+    large = phase_large(dev, smi)
+    phase_pipeline_cascade(dev)
+    phase_pipeline_world(dev, smi)
+    counts = phase_pipeline_large(dev, smi, large)
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
-    phase_large(dev, smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": timing[name]["max_abs_err"],

@@ -2,9 +2,9 @@
 
 The aligner has no weights. Its state is the shard text
 (``PackedReference``), the FM index (``FMIndex``) and the scoring and
-seeding parameters. Each package defines its own dataclasses for all
-three, so the reference's objects are mapped field by field, the numpy
-arrays shared as they are. Nothing here imports ``megapath_tpu``: any
+seeding parameters; the pipeline adds the taxonomy (``TaxDB``). Each
+package defines its own classes for all of them, so the reference's
+objects are mapped field by field, the numpy arrays shared as they are. Nothing here imports ``megapath_tpu``: any
 object with the reference's fields will do.
 """
 
@@ -19,6 +19,11 @@ from megapath_tpu_torch.align.engine import AlignEngine
 from megapath_tpu_torch.align.params import AlignParams, MmpParams
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import PackedReference
+from megapath_tpu_torch.taxonomy.taxdb import TaxDB
+
+# every table a TaxDB holds after read_nodes/read_names/read_acc2tid
+_TAXDB_FIELDS = ("parent", "rank_code", "is_species", "is_superkingdom",
+                 "rank", "names", "acc2tid")
 
 
 def align_params_from_reference(p) -> Union[AlignParams, MmpParams]:
@@ -53,3 +58,12 @@ def engine_from_reference(
         params = align_params_from_reference(params)
     ref, fm = index_from_reference(ref, fm)
     return AlignEngine(ref, fm, params, device=device, device_seeding=device_seeding)
+
+
+def taxdb_from_reference(db) -> TaxDB:
+    """The reference's ``TaxDB`` as the port's; its tables (arrays and
+    dicts) are shared, not copied."""
+    out = TaxDB(size=1)
+    for name in _TAXDB_FIELDS:
+        setattr(out, name, getattr(db, name))
+    return out

@@ -46,10 +46,11 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kNeg = -1000000;  // the reference's -inf surrogate
 constexpr unsigned kFull = 0xffffffffu;
-// The widest window this library takes: 32 lanes x 32 rows, the mate
-// rescue's W = 1024. A wider caller needs a CH = 48 or 64 instantiation,
-// which spills registers at this design's int32 scores.
-constexpr int kMaxWidth = 32 * 32;
+// The widest window this library takes: 32 lanes x 64 rows. The engine's
+// widest window is the mate rescue's round_up(750 + L + 62, 128) = 1920 at
+// its longest read, L = 1023. The CH = 40-64 instantiations hold three
+// arrays of CH ints a lane and may spill registers: slower, not wrong.
+constexpr int kMaxWidth = 32 * 64;
 
 struct Scores {
   int match, mismatch, gap_open, gap_extend;
@@ -285,7 +286,11 @@ int dispatch(const void* reads, const void* refs, const void* read_lens,
   if (ch <= 12) return (int)MP_LAUNCH(12);
   if (ch <= 16) return (int)MP_LAUNCH(16);
   if (ch <= 24) return (int)MP_LAUNCH(24);
-  return (int)MP_LAUNCH(32);
+  if (ch <= 32) return (int)MP_LAUNCH(32);
+  if (ch <= 40) return (int)MP_LAUNCH(40);
+  if (ch <= 48) return (int)MP_LAUNCH(48);
+  if (ch <= 56) return (int)MP_LAUNCH(56);
+  return (int)MP_LAUNCH(64);
 #undef MP_LAUNCH
 }
 

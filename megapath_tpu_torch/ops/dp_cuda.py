@@ -17,6 +17,11 @@ import torch
 from megapath_tpu_torch.ops import _build
 from megapath_tpu_torch.ops.dp import DPFullResult, DPParams, DPResult
 
+# The widest window the kernel takes (``kMaxWidth`` in dp_full.cu): the
+# engine's widest is the mate rescue's round_up(750 + L + 62, 128) = 1920
+# at its longest read, L = 1023.
+MAX_WIDTH = 2048
+
 # Kernel launches since the last reset, one count per entry point;
 # chip_smoke.py zeroes them and reads them back to show that the main
 # path went through the kernels.
@@ -57,10 +62,9 @@ def _check_batch(reads, refs, read_lens, ref_lens, params: DPParams):
         # the in-column gap chain is a prefix max only while opening
         # costs at least as much as extending (ops/dp.py)
         raise ValueError(f"gap_open > gap_extend is outside the kernel's contract: {params}")
-    lib = _build.load()
-    if W < 1 or W > lib.mp_dp_full_max_width():
-        raise ValueError(f"window width {W} outside 1..{lib.mp_dp_full_max_width()}")
-    return lib, C, R, W
+    if W < 1 or W > MAX_WIDTH:
+        raise ValueError(f"window width {W} outside 1..{MAX_WIDTH}")
+    return _build.load(), C, R, W
 
 
 def sw_align_full_cuda(

@@ -124,3 +124,17 @@ def test_sw_align_auto_on_cpu_runs_plain_and_launches_nothing():
     got = tdp.sw_align_auto(*batch)
     assert dp_cuda.fwd_launches == 0
     _assert_fwd_equal(got, tdp.sw_align(*batch))
+
+
+def test_max_width_covers_the_engines_widest_window():
+    """The engine takes reads up to L = 1023 (the walk's own bound); its
+    widest DP window is then mate rescue's round_up(insert_high + L + 62,
+    128) = 1920 rows, the single-end DP's round_up(L + 62, 64) = 1088.
+    The CUDA kernel takes both."""
+    from megapath_tpu_torch.align.engine import _round_up
+    from megapath_tpu_torch.align.params import AlignParams
+
+    L = 1023
+    rescue = _round_up(int(AlignParams().insert_high + L + 62), 128)
+    assert (rescue, _round_up(L + 62, 64)) == (1920, 1088)
+    assert dp_cuda.MAX_WIDTH >= rescue

@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import canonical_hits, golden_mismatches
+from chip_smoke import _text, canonical_hits, golden_mismatches, world_workload
 from megapath_tpu.align import AlignEngine as JAlignEngine
 from megapath_tpu.align import params as jparams
 from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import pack_fasta_file, pack_reads
+from megapath_tpu.index.pack import pack_fasta, pack_fasta_file, pack_reads
+from megapath_tpu.io.fastq import FastqRecord as JRecord
 from megapath_tpu.io.fastq import read_fastx
 from megapath_tpu_torch.align import params as tparams
 from megapath_tpu_torch.align.engine import AlignEngine
@@ -155,3 +156,34 @@ def test_device_tables_follow_commit_and_evict(worlds):
     host = engine_from_reference(ref, fm, jparams.AlignParams(), CPU)
     assert host.dfm is None and host.align_pairs(*batch) is not None
     assert host._batch_dev is None
+
+
+@pytest.mark.parametrize("device_seeding", [True, False])
+def test_250bp_mate_rescue_equals_jax(device_seeding):
+    """2 x 250 bp pairs whose second end has a substitution every 12th
+    base (chip_smoke.world_workload's rescue pairs): no seed survives on
+    it, so the single-end DP places the first end and mate rescue, in a
+    window of round_up(750 + 250 + 62, 128) = 1152 rows, the second.
+    BatchHits equal the JAX engine's on both seeding paths."""
+    world = world_workload(n=4)
+    ref = pack_fasta([JRecord(n, _text(c), "", d) for n, d, c in world["nt"][0]])
+    fm = build_fm_index(ref.codes, sa_interval=4, lut_k=6)
+    pairs = [p for p in world["pairs"] if p[0].startswith("rescue")]
+    batch = (*pack_reads([p[1] for p in pairs], 250), *pack_reads([p[3] for p in pairs], 250))
+    jp = jparams.AlignParams()
+    want = JAlignEngine(ref, fm, jp, device_seeding=device_seeding).align_pairs(*batch)
+    port = engine_from_reference(ref, fm, jp, CPU, device_seeding=device_seeding)
+    widths = []
+    for name in ("_device_align_rows", "_device_align"):
+        inner = getattr(port, name)
+
+        def record(*a, _inner=inner):
+            widths.append(a[-1])
+            return _inner(*a)
+
+        setattr(port, name, record)
+    got = port.align_pairs(*batch)
+    np.testing.assert_array_equal(canonical_hits(got), canonical_hits(want))
+    assert 1152 in widths
+    # every pair's second end came back, through the rescue
+    assert set(got.read[got.end == 1].tolist()) == set(range(len(pairs)))

@@ -42,6 +42,16 @@ import megapath_tpu_torch.index.fm
 import megapath_tpu_torch.io.fastq
 import megapath_tpu_torch.ops.dp_cuda
 import megapath_tpu_torch.ops.seed_cuda
+import megapath_tpu_torch.classify.reassign
+import megapath_tpu_torch.filters.bbduk
+import megapath_tpu_torch.filters.spike
+import megapath_tpu_torch.io.lsam
+import megapath_tpu_torch.io.stream
+import megapath_tpu_torch.native
+import megapath_tpu_torch.pipeline
+import megapath_tpu_torch.taxonomy.report
+import megapath_tpu_torch.taxonomy.taxdb
+import megapath_tpu_torch.utils.timing
 import chip_smoke
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
