@@ -19,16 +19,23 @@ exits non-zero and prints no result line):
    phases 3 and 5 use it.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                every output equal (tolerance 0), median CUDA-event times
-               of both: ``dp_full`` at the main path's shapes and edge
-               batches; ``dp_fwd`` at the graft entry's (256, 128, 256),
-               at (4096, 100, 192) and on an edge batch; both at the
-               windows past 1024 rows (W = 1152, the 2 x 250 bp mate
-               rescue; W = 1920, the widest the engine makes; an edge
-               batch at W = 1025), and ``mp_dp_full_max_width()`` ==
-               ``dp_cuda.MAX_WIDTH`` (2048); ``mmp_seed`` on
-               2 x 4,096 read ends of the toy workload under the default
-               and the exact dials; ``locate`` on every SA row those
-               seeds expand to.
+               of both beside the bound (the DP's cells at the card's
+               cell rate, the walk's and the locate's bytes at its memory
+               rate): ``dp_full`` at the main path's shapes, an odd C,
+               pairs whose two candidates differ in read and window
+               length, ties for both passes' orders, edge batches and one
+               batch for every instantiation the library holds (W = 32 to
+               2048, W = 1025, 1152 and 1920 among them); ``dp_fwd`` at
+               the graft entry's (256, 128, 256), at (4096, 100, 192),
+               (1024, 100, 1024) and on those corners;
+               ``mp_dp_full_max_width()`` == ``dp_cuda.MAX_WIDTH``
+               (2048), and both refuse what leaves the int16 range;
+               ``mmp_seed`` on 2 x 4,096 read ends of the toy workload
+               under the default and the exact dials, the exact rescue's
+               1,024 walkers, an odd walker count and 250 bp and 1,023 bp
+               walkers, timed also per iteration of the longest walker;
+               ``locate`` on every SA row the default walk's seeds expand
+               to.
 4. golden   -- the port engine on ``cuda`` over the soap4 fixture, on
                host and on device seeding: 0/200 read-end mismatches
                against the soap4 golden on each.
@@ -152,6 +159,16 @@ WORLD_PAIRS_PER_KIND = 8
 # (with 1,000 steps it seeds them). They reach the NT stage unclassified.
 LARGE_HG_KEPT = (5190, 15363)
 CASCADE = FIX / "cascade"
+# The card's peaks the bounds use (NVIDIA H100 SXM): device memory at
+# 3.35 TB/s, and the DP's cell rate: 64 integer lanes a clock x 132 SMs x
+# 1.98 GHz (the maximum SM clock) over 3 lane-instructions a cell (DPX in
+# 16x2 form: one cell pair in 6).
+HBM_BYTES_PER_S = 3.35e12
+DP_CELLS_PER_S = 64 * 132 * 1.98e9 / 3
+# what a rank reads of an occ row (4 checkpoints | 8 BWT words; its 4
+# pad words are never loaded)
+OCC_ROW_BYTES = 48
+MARK_ROW_BYTES = 8  # one mark row: bitmap word, rank checkpoint
 
 
 # ----------------------------------------------------------------------
@@ -232,6 +249,89 @@ def edge_batch(rng: np.random.Generator, R: int, W: int, C: int = 32):
     win = rnd(W)  # and at the first rows
     plant(10, win[:12], win, 12, W)
     return reads, refs, rl, wl
+
+
+def padded_batch(rng: np.random.Generator, C: int, L: int, R: int, W: int):
+    """Planted candidates with reads of at most ``L`` chars in rows
+    padded to ``R`` (the pipeline pads reads to its max_read_len)."""
+    reads, refs, rl, wl = planted_batch(rng, C, L, W)
+    return np.pad(reads, ((0, 0), (0, R - L))), refs, rl, wl
+
+
+def tie_batch(rng: np.random.Generator, R: int, W: int, C: int = 64):
+    """Periodic reads in periodic windows (periods 1-4, 6), so that many
+    cells share the best score in both passes: the forward pass must take
+    the lowest j, then the lowest i, the backward pass the highest j, then
+    the highest i. Each adjacent pair of candidates differs in read and
+    window length."""
+    reads = np.zeros((C, R), np.uint8)
+    refs = np.zeros((C, W), np.uint8)
+    rl = np.zeros(C, np.int32)
+    wl = np.zeros(C, np.int32)
+    for b in range(C):
+        p = int(rng.choice([1, 2, 3, 4, 6]))
+        motif = rng.integers(0, 4, p).astype(np.uint8)
+        refs[b] = np.resize(motif, W)
+        phase = int(rng.integers(0, p))
+        read = np.resize(np.roll(motif, -phase), R)
+        if b % 3 == 1:  # a mismatch in the middle splits the read's runs
+            read[R // 2] = (read[R // 2] + 1) % 4
+        reads[b] = read
+        rl[b] = int(rng.integers(1, R + 1)) if b % 2 else R
+        wl[b] = int(rng.integers(1, W + 1)) if b % 2 == 0 else W
+    return reads, refs, rl, wl
+
+
+def pair_lens_batch(rng: np.random.Generator, R: int, W: int, C: int = 64):
+    """Planted candidates where the two of each pair (rows 2p, 2p + 1,
+    the kernel's two register halves) differ in read_lens and ref_lens:
+    every odd row's read and window are cut to about a third and a half."""
+    reads, refs, rl, wl = planted_batch(rng, C, R, W)
+    rl[1::2] = np.maximum(1, rl[1::2] // 3)
+    wl[1::2] = np.maximum(1, wl[1::2] // 2)
+    return reads, refs, rl, wl
+
+
+def dp_work(read_lens, ref_lens, R: int, W: int, res=None) -> tuple:
+    """(cells, bytes) a DP launch must cover: the forward cells
+    sum(rl * wl) (lengths clamped to R and W) and, given the full
+    result, the backward cells sum(end_read * end_ref); the bytes read
+    once (reads, windows, lengths) and written once (3 outputs, or 5)."""
+    rl = np.clip(np.asarray(read_lens, np.int64), 0, R)
+    wl = np.clip(np.asarray(ref_lens, np.int64), 0, W)
+    cells = int((rl * wl).sum())
+    n_out = 3
+    if res is not None:
+        cells += int((np.asarray(res.end_read, np.int64) * np.asarray(res.end_ref, np.int64)).sum())
+        n_out = 5
+    C = len(rl)
+    return cells, C * (R + W + 8 + 4 * n_out)
+
+
+def walk_bytes(n_walkers: int, L: int, max_seeds: int, stats: dict) -> int:
+    """Bytes a seed walk must move, each input read once and each output
+    written once: the walker codes and lengths, every occ row that the
+    extending steps rank in and every k-mer table entry (two words) that
+    the fresh steps look up (the plain walk's ``stats``), the slots and
+    seed counts."""
+    return (n_walkers * (L + 4) + stats["occ_rows"] * OCC_ROW_BYTES
+            + stats["lut_keys"] * 8 + n_walkers * (16 * max_seeds + 4))
+
+
+def locate_bytes(n_rows: int, stats: dict) -> int:
+    """Bytes a locate must move, each input read once: each row in and
+    out and one sampled position, every mark row and occ row the walk
+    reads (the plain locate's ``stats``)."""
+    return (n_rows * 12 + stats["mark_rows"] * MARK_ROW_BYTES
+            + stats["occ_rows"] * OCC_ROW_BYTES)
+
+
+def bound(cells: int, nbytes: int) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes at the memory rate
+    and the DP cells at the cell rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = cells / DP_CELLS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 def toy_workload(
@@ -693,16 +793,22 @@ def phase_build() -> None:
     libs = [native.build(name, force=True).name for name in ("bbduk", "spike")]
     print(f"[build] g++ built the host libraries {', '.join(libs)} in "
           f"{time.perf_counter() - t:.1f} s")
-    # ptxas -v: an entry function's mangled name (dp_full_kernel<CH, bwd>
-    # is "dp_full_kernelILi<CH>ELb<bwd>E"), then its register line
+    # ptxas -v: an entry function's mangled name (dp_wave_kernel<G, CH,
+    # bwd> is "dp_wave_kernelILi<G>ELi<CH>ELb<bwd>EE"), then its register line
     name = "?"
     for ln in _build.LOG_PATH.read_text().splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?", ln)
-            name = m.group(1) + (f"<{','.join(g for g in m.groups()[1:] if g)}>"
+            m = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:L[a-z]\d+E)+E)?", ln)
+            name = m.group(1) + (f"<{','.join(re.findall(r'L[a-z](\d+)E', m.group(2)))}>"
                                  if m.group(2) else "")
         elif "registers" in ln or "spill stores" in ln and " 0 bytes spill" not in ln:
             print(f"[build] ptxas {name}: {ln.split('ptxas info    :')[-1].strip()}")
+
+
+# ~1 ms of a spinning kernel ahead of each timed call: the card is busy
+# while the host runs the wrapper's Python and enqueues the launch, so the
+# events around it time the card's work and not the host's
+SPIN_CYCLES = 2_000_000
 
 
 def _median_ms(fn, reps: int = 10) -> float:
@@ -712,6 +818,7 @@ def _median_ms(fn, reps: int = 10) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -738,63 +845,95 @@ def _hold(tag: str, got, want, fields) -> int:
     return max(errs.values())
 
 
+def _share(ms: float, bound_ms: float) -> str:
+    return f"bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it"
+
+
 def kernels_dp(dev: torch.device, smi: str) -> dict:
-    """dp_full and dp_fwd against sw_align_full and sw_align, at every
-    chunk size the library holds (W up to dp_cuda.MAX_WIDTH)."""
+    """dp_full and dp_fwd against sw_align_full and sw_align, at the main
+    path's shapes, the contract's corners and every (lanes a pair, rows a
+    lane) instantiation the library holds (W up to dp_cuda.MAX_WIDTH)."""
     rng = np.random.default_rng(20261016)
     params = DPParams()
-    # the main path's shapes: deep DP at 100 bp (W = 192, CH = 6) and
-    # 150 bp (W = 256, CH = 8), mate rescue at 100 bp (W = 1024) and 80 bp
-    # (W = 896: rows 896..1023 are the kernel's padding); a C that is not
-    # a multiple of the block's 4 warps; the contract's corners; and one
-    # batch for each other chunk size the library holds (CH = 2, 4, 12,
-    # 16, 24: the deep DP of shorter and longer reads)
     lib = _build.load()
     if lib.mp_dp_full_max_width() != dp_cuda.MAX_WIDTH:
         raise AssertionError(f"[kernels] the library takes W <= {lib.mp_dp_full_max_width()}, "
                              f"dp_cuda.MAX_WIDTH is {dp_cuda.MAX_WIDTH}")
     print(f"[kernels] mp_dp_full_max_width() == dp_cuda.MAX_WIDTH == {dp_cuda.MAX_WIDTH}")
-    # the windows past 1024 rows (CH = 40-64): the 2x250 mate rescue
-    # (W = 1152), the widest the engine makes (L = 1023: W = 1920) and the
-    # first width past 1024
+    # the windows past 1024 rows (32 lanes, CH = 36-64): the 2x250 mate
+    # rescue (W = 1152), the widest the engine makes (L = 1023: W = 1920)
+    # and the first width past 1024
     wide = [
         ("mate_rescue_250bp", planted_batch(rng, 1024, 250, 1152)),
         ("widest_l1023", planted_batch(rng, 256, 1023, 1920)),
         ("edge_w1025", edge_batch(rng, 250, 1025)),
+        ("padded_r1024", padded_batch(rng, 256, 250, 1024, 1152)),
     ]
+    # the main path's shapes: deep DP at 100 bp (W = 192: 16 lanes x 12
+    # rows at C = 4,096) and 150 bp (W = 256), mate rescue at 100 bp (W =
+    # 1024: 32 x 32) and 80 bp (W = 896: rows past 896 are padding); an odd
+    # C (the last pair's high half empty), C = 3 and C = 1; pairs whose two
+    # halves differ in read and window length; ties for both passes'
+    # orders; the contract's corners
     cases = [
         ("deep_dp", planted_batch(rng, 4096, 100, 192)),
         ("mate_rescue", planted_batch(rng, 1024, 100, 1024)),
         ("deep_dp_150bp", planted_batch(rng, 4096, 150, 256)),
         ("mate_rescue_80bp", planted_batch(rng, 1024, 80, 896)),
         ("ragged_c", planted_batch(rng, 1001, 100, 192)),
+        ("odd_c3", planted_batch(rng, 3, 100, 192)),
+        ("one_c", planted_batch(rng, 1, 100, 1024)),
+        ("pair_lens_w192", pair_lens_batch(rng, 100, 192)),
+        ("pair_lens_w1152", pair_lens_batch(rng, 250, 1152)),
+        ("ties_w192", tie_batch(rng, 100, 192)),
+        ("ties_w1024", tie_batch(rng, 100, 1024)),
+        ("ties_w1920", tie_batch(rng, 1000, 1920, C=33)),
         ("edge_w192", edge_batch(rng, 100, 192)),
         ("edge_w1024", edge_batch(rng, 100, 1024)),
-    ] + [
-        (f"width_w{w}", planted_batch(rng, 256, r, w))
-        for r, w in ((30, 64), (60, 128), (250, 384), (400, 512), (600, 768))
     ] + wide
+    # every instantiation the library holds, through both kernels: 8 lanes
+    # a pair take C >= 4,224 on 132 SMs (pairs x 8 / 32 >= 4 warps an SM),
+    # 16 lanes C >= 2,112, 32 lanes the rest and every W > 512
+    coverage = [(8192, 40, w) for w in (32, 48, 64, 96, 128, 192, 256)] + [
+        (3000, 60, w) for w in (64, 96, 128, 192, 256, 384, 512)] + [
+        (256, 120, w) for w in (128, 192, 256, 384, 512, 768, 1024, 1152, 1280,
+                                1536, 1792, 2048)]
     # the plain version's repetitions for each timed case (its widest
     # call is ~2,000 column steps of small ops)
     timed = {"deep_dp": 10, "mate_rescue": 10, "deep_dp_150bp": 10,
              "mate_rescue_80bp": 10, "mate_rescue_250bp": 10, "widest_l1023": 3}
-    full = {"max_abs_err": 0}
+    full = {"max_abs_err": 0, "library_ms": None}
     for tag, batch in cases:
         t = [torch.from_numpy(a).to(dev) for a in batch]
+        got = dp_cuda.sw_align_full_cuda(*t, params)
+        want = sw_align_full(*t, params)
         full["max_abs_err"] = max(full["max_abs_err"], _hold(
-            f"dp_full {tag}", dp_cuda.sw_align_full_cuda(*t, params),
-            sw_align_full(*t, params), FIELDS))
+            f"dp_full {tag}", got, want, FIELDS))
         C, R = batch[0].shape
         W = batch[1].shape[1]
         line = f"[kernels] dp_full {tag} C={C} R={R} W={W}: 5/5 outputs equal (tolerance 0)"
         if tag in timed:
             ms = _median_ms(lambda: dp_cuda.sw_align_full_cuda(*t, params))
             plain_ms = _median_ms(lambda: sw_align_full(*t, params), reps=timed[tag])
-            full.setdefault("ms", ms)
-            full.setdefault("plain_ms", plain_ms)
+            cells, nbytes = dp_work(batch[2], batch[3], R, W, got._replace(
+                **{f: getattr(got, f).cpu() for f in FIELDS}))
+            bound_ms, by = bound(cells, nbytes)
+            if "ms" not in full:
+                full.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
             line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms "
-                     f"(of {timed[tag]}) [{smi}]")
+                     f"(of {timed[tag]}); {cells} cells, {_share(ms, bound_ms)} "
+                     f"({by}) [{smi}]")
         print(line)
+    for C, R, W in coverage:
+        t = [torch.from_numpy(a).to(dev) for a in planted_batch(rng, C, R, W)]
+        full["max_abs_err"] = max(full["max_abs_err"], _hold(
+            f"dp_full C={C} R={R} W={W}", dp_cuda.sw_align_full_cuda(*t, params),
+            sw_align_full(*t, params), FIELDS))
+        _hold(f"dp_fwd C={C} R={R} W={W}", dp_cuda.sw_align_cuda(*t, params),
+              sw_align(*t, params), FWD_FIELDS)
+    print(f"[kernels] dp_full and dp_fwd at every (lanes, rows) instantiation: "
+          f"{len(coverage)} batches, C x R x W = "
+          + ", ".join(f"{C}x{R}x{W}" for C, R, W in coverage) + ": outputs equal (tolerance 0)")
     t = [torch.from_numpy(a).to(dev) for a in planted_batch(rng, 8, 100, dp_cuda.MAX_WIDTH + 1)]
     try:
         dp_cuda.sw_align_full_cuda(*t, params)
@@ -807,12 +946,17 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
     ref, reads, lens, starts = graft_inputs(dev)[0]
     wins = tdev.gather_windows(ref, starts, 256)
     graft = (reads, wins, lens, torch.full_like(lens, 256))
+    on_dev = lambda b: [torch.from_numpy(a).to(dev) for a in b]  # noqa: E731
     fwd_cases = [
         ("graft", graft),
-        ("deep_dp", [torch.from_numpy(a).to(dev) for a in planted_batch(rng, 4096, 100, 192)]),
-        ("edge_w192", [torch.from_numpy(a).to(dev) for a in edge_batch(rng, 100, 192)]),
-    ] + [(tag, [torch.from_numpy(a).to(dev) for a in batch]) for tag, batch in wide]
-    fwd = {"max_abs_err": 0}
+        ("deep_dp", on_dev(planted_batch(rng, 4096, 100, 192))),
+        ("mate_rescue", on_dev(planted_batch(rng, 1024, 100, 1024))),
+        ("odd_c3", on_dev(planted_batch(rng, 3, 100, 192))),
+        ("pair_lens_w1152", on_dev(pair_lens_batch(rng, 250, 1152))),
+        ("ties_w192", on_dev(tie_batch(rng, 100, 192))),
+        ("edge_w192", on_dev(edge_batch(rng, 100, 192))),
+    ] + [(tag, on_dev(batch)) for tag, batch in wide]
+    fwd = {"max_abs_err": 0, "library_ms": None}
     for tag, t in fwd_cases:
         fwd["max_abs_err"] = max(fwd["max_abs_err"], _hold(
             f"dp_fwd {tag}", dp_cuda.sw_align_cuda(*t, params), sw_align(*t, params),
@@ -820,21 +964,52 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
         C, R = t[0].shape
         W = t[1].shape[1]
         line = f"[kernels] dp_fwd {tag} C={C} R={R} W={W}: 3/3 outputs equal (tolerance 0)"
-        if not tag.startswith("edge"):
+        if not tag.startswith(("edge", "odd", "pair", "ties", "padded")):
             reps = timed.get(tag, 10)
             ms = _median_ms(lambda: dp_cuda.sw_align_cuda(*t, params))
             plain_ms = _median_ms(lambda: sw_align(*t, params), reps=reps)
-            fwd.setdefault("ms", ms)
-            fwd.setdefault("plain_ms", plain_ms)
+            cells, nbytes = dp_work(t[2].cpu().numpy(), t[3].cpu().numpy(), R, W)
+            bound_ms, by = bound(cells, nbytes)
+            if "ms" not in fwd:
+                fwd.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
             line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms "
-                     f"(of {reps}) [{smi}]")
+                     f"(of {reps}); {cells} cells, {_share(ms, bound_ms)} ({by}) [{smi}]")
         print(line)
+    reads, refs, rl, wl = planted_batch(rng, 8, 1024, 1152)
+    rl[3], wl[3] = 1024, 1152  # one candidate can score 1024
+    t = [torch.from_numpy(a).to(dev) for a in (reads, refs, rl, wl)]
+    try:
+        dp_cuda.sw_align_cuda(*t, params)
+    except ValueError as e:
+        print(f"[kernels] dp_fwd refuses a 1,024 bp read in a 1,152-row window: {e}")
+    else:
+        raise AssertionError("[kernels] dp_fwd took min(read_len, win_len) * match = 1024")
     return {"dp_full": full, "dp_fwd": fwd}
 
 
+def long_read_walkers(dev: torch.device, ref_codes: np.ndarray, n: int, L: int, seed: int):
+    """Walkers of ``n`` read ends of length ``L`` drawn from a shard's text
+    with Poisson(L / 100) substitutions each: (walkers, lens) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    reads = np.zeros((n, L), np.uint8)
+    for i in range(n):
+        p = int(rng.integers(0, len(ref_codes) - L))
+        reads[i] = ref_codes[p : p + L]
+        for _ in range(int(rng.poisson(L / 100))):
+            q = int(rng.integers(0, L))
+            reads[i, q] = (reads[i, q] + 1 + rng.integers(0, 3)) % 4
+    lens = torch.full((n,), L, dtype=torch.int32, device=dev)
+    return seeding_dev.build_walkers(torch.from_numpy(reads).to(dev), lens)
+
+
 def kernels_seeding(dev: torch.device, smi: str, toy) -> dict:
-    """mmp_seed and locate against their plain versions on 2 x 4,096
-    read ends of the toy workload (the engine's walker layout)."""
+    """mmp_seed and locate against their plain versions: the walk on 2 x
+    4,096 read ends of the toy workload (the engine's walker layout) under
+    the default and the exact dials, the exact rescue's shape (1,024
+    walkers, exact dials), an odd walker count, and 250 bp and 1,023 bp
+    walkers; the locate on every SA row the default walk's seeds expand
+    to. The walk's time is also given per iteration of its longest
+    walker."""
     ref, fm, reads1, lens1, reads2, lens2 = toy
     dfm = seeding_dev.DeviceFM.from_host(fm, dev)
     reads = np.concatenate([reads1[:2048], reads2[:2048]])
@@ -842,40 +1017,68 @@ def kernels_seeding(dev: torch.device, smi: str, toy) -> dict:
     walkers, wlens = seeding_dev.build_walkers(
         torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
     )
-    L = reads.shape[1]
-    max_seeds, chg = int(min(16, max(4, L // 16 + 2))), 3 * L + 64
     base = AlignParams().mmp
-    dials = {
-        "default": base,
-        "exact": dataclasses.replace(base, kill_ratio=0.0, sibling_kill_steps=0),
-    }
-    out = {"mmp_seed": {"max_abs_err": 0}}
-    for tag, mmp in dials.items():
-        args = (dfm, walkers, wlens, mmp, max_seeds, chg, chg)
+    exact = dataclasses.replace(base, kill_ratio=0.0, sibling_kill_steps=0)
+    # the rescue walks the needy pairs' read ends: 512 of them here
+    rw = torch.cat([walkers[:512], walkers[4096 : 4096 + 512]])
+    rl = torch.cat([wlens[:512], wlens[4096 : 4096 + 512]])
+    w250 = long_read_walkers(dev, ref.codes, 512, 250, seed=250)
+    w1023 = long_read_walkers(dev, ref.codes, 128, 1023, seed=1023)
+    cases = [  # (tag, walkers, lens, dials, timed)
+        ("toy default dials", walkers, wlens, base, True),
+        ("toy exact dials", walkers, wlens, exact, True),
+        ("rescue exact dials", rw, rl, exact, True),
+        ("odd walker count", walkers[:1023], wlens[:1023], base, False),
+        ("L=250 default dials", *w250, base, False),
+        ("L=1023 default dials", *w1023, base, False),
+    ]
+    out = {"mmp_seed": {"max_abs_err": 0, "library_ms": None}}
+    for tag, wk, wl, mmp, is_timed in cases:
+        L = wk.shape[1]
+        max_seeds, chg = int(min(16, max(4, L // 16 + 2))), 3 * L + 64
+        args = (dfm, wk, wl, mmp, max_seeds, chg, chg)
         got = seed_cuda.mmp_seed_cuda(*args)
-        want = seeding_dev.mmp_seed_device_plain(*args)
+        stats = {}
+        want = seeding_dev.mmp_seed_device_plain(*args, stats=stats)
         err = _hold(f"mmp_seed {tag}", got, want, SEED_FIELDS)
         out["mmp_seed"]["max_abs_err"] = max(out["mmp_seed"]["max_abs_err"], err)
-        ms = _median_ms(lambda: seed_cuda.mmp_seed_cuda(*args))
-        plain_ms = _median_ms(lambda: seeding_dev.mmp_seed_device_plain(*args), reps=3)
-        print(f"[kernels] mmp_seed {tag} dials: {walkers.shape[0]} walkers x {L}, "
-              f"{int(got.n_seeds.sum())} seeds, 5/5 outputs equal (tolerance 0); "
-              f"median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms (of 3) [{smi}]")
-        if tag == "default":
-            out["mmp_seed"].update(ms=ms, plain_ms=plain_ms)
-            flat = seeding_dev.flatten_seeds(got)
-            rows = seeding_dev.expand_rows(flat.sa_lo, flat.sa_count)
+        line = (f"[kernels] mmp_seed {tag}: {wk.shape[0]} walkers x {L}, "
+                f"{int(got.n_seeds.sum())} seeds, 5/5 outputs equal (tolerance 0), "
+                f"{stats['iterations']} iterations")
+        if is_timed:
+            ms = _median_ms(lambda: seed_cuda.mmp_seed_cuda(*args))
+            plain_ms = _median_ms(lambda: seeding_dev.mmp_seed_device_plain(*args), reps=3)
+            bound_ms, by = bound(0, walk_bytes(wk.shape[0], L, max_seeds, stats))
+            line += (f"; median: kernel {ms:.4f} ms (of 10) = "
+                     f"{1e3 * ms / stats['iterations']:.3f} us an iteration, plain "
+                     f"{plain_ms:.4f} ms (of 3); {_share(ms, bound_ms)} ({by}) [{smi}]")
+            if "ms" not in out["mmp_seed"]:
+                out["mmp_seed"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=by, iterations=stats["iterations"])
+                flat = seeding_dev.flatten_seeds(got)
+                rows = seeding_dev.expand_rows(flat.sa_lo, flat.sa_count)
+        print(line)
+    try:
+        seed_cuda.mmp_seed_cuda(dfm, walkers, wlens, base, seed_cuda.MAX_SEEDS + 1)
+    except ValueError as e:
+        print(f"[kernels] mmp_seed refuses max_seeds = {seed_cuda.MAX_SEEDS + 1}: {e}")
+    else:
+        raise AssertionError(f"[kernels] mmp_seed took max_seeds = {seed_cuda.MAX_SEEDS + 1}")
     got = seed_cuda.locate_cuda(dfm, rows)
-    want = seeding_dev.locate_device_plain(dfm, rows)
+    stats = {}
+    want = seeding_dev.locate_device_plain(dfm, rows, stats=stats)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     if err or bool((got < 0).any()):
         raise AssertionError(f"[kernels] locate: kernel != plain (max |err| {err}) or unresolved rows")
     ms = _median_ms(lambda: seed_cuda.locate_cuda(dfm, rows))
     plain_ms = _median_ms(lambda: seeding_dev.locate_device_plain(dfm, rows))
+    bound_ms, by = bound(0, locate_bytes(len(rows), stats))
     print(f"[kernels] locate: {len(rows)} SA rows of those seeds, positions equal "
-          f"(tolerance 0); median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
-    out["locate"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+          f"(tolerance 0); median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"{stats['lf_steps']} LF steps, {_share(ms, bound_ms)} ({by}) [{smi}]")
+    out["locate"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     return out
 
 
@@ -1254,8 +1457,9 @@ def main() -> int:
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": timing[name]["max_abs_err"],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+         "launches": launches[name],
+         **{k: timing[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

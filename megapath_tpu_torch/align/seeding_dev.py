@@ -198,6 +198,11 @@ def _occ_full(rows_u: torch.Tensor, primary: int, row: torch.Tensor, c: torch.Te
     return _occ_in_rows(rows_u[adj >> 7], adj & (OCC_BLOCK - 1), c)
 
 
+def _occ_block(primary: int, row: torch.Tensor) -> torch.Tensor:
+    """The occ row that ranks full-BWT row ``row``."""
+    return (row - (row > primary).to(torch.int64)) >> 7
+
+
 def mmp_seed_device_plain(
     dfm: DeviceFM,
     walkers: torch.Tensor,  # uint8 [W, L]
@@ -206,13 +211,19 @@ def mmp_seed_device_plain(
     max_seeds: int = 16,
     max_steps: Optional[int] = None,
     charge_limit: Optional[int] = None,
+    stats: Optional[dict] = None,
 ) -> DeviceSeeds:
     """The seed walk as a lockstep loop over all walkers, in plain torch:
     ``seeding_jax.device_mmp_seed`` (fresh walk, finalized, sibling cull
     on for an even walker count) with plain gathers in place of the TPU's
     one-hot fetches. ``max_steps`` bounds the iterations (default
     3L + 64); ``charge_limit`` retires a walker at that many charged
-    steps unless it is at its read end."""
+    steps unless it is at its read end. A ``stats`` dict receives the
+    iterations the loop ran (the longest walker's), the counts of fresh
+    and extending steps taken, and what the walk reads, each table entry
+    once: the distinct occ rows the extending steps rank in
+    (``occ_rows``) and the distinct k-mer keys the fresh steps look up
+    (``lut_keys``)."""
     Wn, L = walkers.shape
     check_walk(L, params)
     dev = walkers.device
@@ -286,9 +297,14 @@ def mmp_seed_device_plain(
         last_hi = torch.where(mid, n_rows, last_hi)
         last_len = torch.where(mid, 0, last_len)
 
+    iterations = n_fresh = n_ext = 0
+    if stats is not None:
+        seen_rows = torch.zeros(rows_u.shape[0], dtype=torch.bool, device=dev)
+        seen_keys = torch.zeros(4**k if k else 1, dtype=torch.bool, device=dev)
     for _ in range(limit):
         if not bool(active.any()):
             break
+        iterations += 1
         if charge_limit is not None:
             active = active & ((steps < charge_limit) | (i >= lens))
         if params.kill_ratio > 0:
@@ -315,6 +331,11 @@ def mmp_seed_device_plain(
         done = ext & (i >= lens)
         ext = ext & ~done
         steps = steps + (act0 & ~pause).to(i64)
+        if stats is not None:
+            n_fresh += int(fresh.sum())
+            n_ext += int(ext.sum())
+            seen_rows[_occ_block(primary, lo[ext])] = True
+            seen_rows[_occ_block(primary, hi[ext])] = True
 
         jj = (lens - 1 - i).clamp(0, L - 1)
         c = torch.gather(seq, 1, jj[:, None])[:, 0]
@@ -325,6 +346,8 @@ def mmp_seed_device_plain(
             j0 = (lens - i - k).clamp(0, L - 1)
             key = torch.gather(km, 1, j0[:, None])[:, 0]
             f_lo, f_hi = lut_lo[key], lut_hi[key]
+            if stats is not None:
+                seen_keys[key[fresh]] = True
         else:
             f_lo, f_hi = cc, counts[c + 1]
         nlo = torch.where(fresh, f_lo, nlo)
@@ -350,6 +373,10 @@ def mmp_seed_device_plain(
     # walkers that ran out of iterations with a live seed at the end
     live = active & (seed_len > 0) & (i >= lens)
     emit(live, live)
+    if stats is not None:
+        stats.update(iterations=iterations, fresh_steps=n_fresh, ext_steps=n_ext,
+                     occ_rows=int(seen_rows.sum()),
+                     lut_keys=int(seen_keys.sum()) if k else 0)
     o = out.to(torch.int32)
     return DeviceSeeds(o[0], o[1], o[2], o[3], n_seeds.to(torch.int32))
 
@@ -378,10 +405,15 @@ def mmp_seed_device(
     raise ValueError(f"no seed walk for tensors on {walkers.device}")
 
 
-def locate_device_plain(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
+def locate_device_plain(
+    dfm: DeviceFM, rows: torch.Tensor, stats: Optional[dict] = None
+) -> torch.Tensor:
     """Text positions (int32) of full-BWT rows by LF walk to a sampled
     row, at most sa_interval + 1 steps, in plain torch
-    (``seeding_jax.device_locate``); -1 where no mark was reached."""
+    (``seeding_jax.device_locate``); -1 where no mark was reached. A
+    ``stats`` dict receives the counts of mark lookups and LF steps
+    taken, and what the walk reads, each table row once: the distinct
+    mark rows (``mark_rows``) and occ rows (``occ_rows``)."""
     i64 = torch.int64
     r = rows.to(i64)
     rows_u = _u32(dfm.rows)
@@ -390,7 +422,14 @@ def locate_device_plain(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
     sampled = dfm.sa_sampled.to(i64)
     pos = torch.full_like(r, -1)
     steps = torch.zeros_like(r)
+    n_marks = n_lf = 0
+    if stats is not None:
+        seen_marks = torch.zeros(marks.shape[0], dtype=torch.bool, device=r.device)
+        seen_rows = torch.zeros(rows_u.shape[0], dtype=torch.bool, device=r.device)
     for _ in range(dfm.sa_interval + 1):
+        if stats is not None:
+            n_marks += int((pos < 0).sum())
+            seen_marks[(r >> 5)[pos < 0]] = True
         mk = marks[r >> 5]
         bit = r & 31
         hit = (pos < 0) & (((mk[:, 0] >> bit) & 1) == 1)
@@ -407,8 +446,14 @@ def locate_device_plain(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
         c = (w >> (2 * (rel & 15))) & 3
         lf = counts[c] + _occ_in_rows(blk, rel, c)
         lf = torch.where(r == dfm.primary, 0, lf)
+        if stats is not None:
+            n_lf += int(todo.sum())
+            seen_rows[(adj >> 7)[todo]] = True
         r = torch.where(todo, lf, r)
         steps = steps + todo.to(i64)
+    if stats is not None:
+        stats.update(mark_lookups=n_marks, lf_steps=n_lf,
+                     mark_rows=int(seen_marks.sum()), occ_rows=int(seen_rows.sum()))
     return pos.to(torch.int32)
 
 

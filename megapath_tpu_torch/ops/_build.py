@@ -101,25 +101,27 @@ def build(force: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's argument and result types on ``lib``."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mp_dp_full.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    lib.mp_dp_full.restype = ci
+    lib.mp_dp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    lib.mp_dp_fwd.restype = ci
+    lib.mp_dp_full_max_width.argtypes = []
+    lib.mp_dp_full_max_width.restype = ci
+    lib.mp_mmp_seed.argtypes = [vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp]
+    lib.mp_mmp_seed.restype = ci
+    lib.mp_locate.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.mp_locate.restype = ci
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built first if needed, with every entry
     point's argument and result types declared."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(LIB_PATH))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mp_dp_full.argtypes = [vp] * 9 + [ci] * 7 + [vp]
-        lib.mp_dp_full.restype = ci
-        lib.mp_dp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-        lib.mp_dp_fwd.restype = ci
-        lib.mp_dp_full_max_width.argtypes = []
-        lib.mp_dp_full_max_width.restype = ci
-        lib.mp_mmp_seed.argtypes = (
-            [vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp]
-        )
-        lib.mp_mmp_seed.restype = ci
-        lib.mp_locate.argtypes = [vp] * 6 + [ci] * 3 + [vp]
-        lib.mp_locate.restype = ci
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(LIB_PATH)))
     return _lib

@@ -6,11 +6,15 @@
 contracts as the plain ``ops.dp.sw_align_full`` and ``ops.dp.sw_align``,
 in JAX's layout at the public function (reads [C, R], refs [C, W],
 lengths [C]). The kernel launches on the current stream, synchronises
-nothing and allocates nothing; these wrappers check their inputs,
-allocate the outputs and raise when the launch is refused.
+nothing and allocates nothing; these wrappers check their inputs (the
+int16 score range too, ``int16_range_error``, before the library is
+loaded; only a batch whose padded widths fail it has its lengths read
+back), allocate the outputs and raise when the launch is refused.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,6 +25,46 @@ from megapath_tpu_torch.ops.dp import DPFullResult, DPParams, DPResult
 # engine's widest is the mate rescue's round_up(750 + L + 62, 128) = 1920
 # at its longest read, L = 1023.
 MAX_WIDTH = 2048
+
+# The kernel's scores are int16; its running best keys a cell as
+# H * 64 + (63 - row in the lane), which must fit 16 bits unsigned.
+MAX_SCORE = 1023
+
+
+def int16_range_error(R: int, W: int, params: DPParams, span: Optional[int] = None
+                      ) -> Optional[str]:
+    """Why the int16x2 kernel cannot take reads of width R, windows of W
+    and these scores, or None when it can. The best local score is at
+    most span * match, where ``span`` is the batch's largest min(read
+    length, window length) (at most, and by default, min(R, W)); a cell
+    past a read or window length must score below a real one (mismatch
+    and gap open < 0, gap extend <= 0); the substitution score comes from
+    a 9-bit code difference scaled by 64, so match - mismatch <= 64."""
+    m, mm, go, ge = params
+    if m < 1:
+        return f"match {m} < 1"
+    if mm >= 0 or go >= 0 or ge > 0:
+        return (f"mismatch {mm} and gap_open {go} must be < 0 and gap_extend {ge} "
+                "<= 0: a cell past a read or window length must not score")
+    if m - mm > 64:
+        return f"match - mismatch = {m - mm} > 64 leaves the substitution code's range"
+    if go < -1024:
+        return f"gap_open {go} < -1024 leaves the int16 range"
+    span = min(R, W) if span is None else min(span, R, W)
+    if span * m > MAX_SCORE:
+        return (f"min(read length, window length) * match = {span * m} > {MAX_SCORE}: "
+                "the scores leave the kernel's int16 range")
+    return None
+
+
+def longest_span(read_lens: torch.Tensor, ref_lens: torch.Tensor, R: int, W: int) -> int:
+    """The batch's largest min(read length, window length), the lengths
+    clamped to [0, R] and [0, W] as the kernel clamps them (0 for an
+    empty batch)."""
+    if read_lens.numel() == 0:
+        return 0
+    return int(torch.minimum(read_lens.clamp(0, R), ref_lens.clamp(0, W)).max())
+
 
 # Kernel launches since the last reset, one count per entry point;
 # chip_smoke.py zeroes them and reads them back to show that the main
@@ -59,11 +103,19 @@ def _check_batch(reads, refs, read_lens, ref_lens, params: DPParams):
             f"read_lens {read_lens.shape[0]}, ref_lens {ref_lens.shape[0]}"
         )
     if params.gap_open > params.gap_extend:
-        # the in-column gap chain is a prefix max only while opening
+        # the kernel's in-column gap chain runs through H with its E term,
+        # which equals the plain chain through H_noE only while opening
         # costs at least as much as extending (ops/dp.py)
         raise ValueError(f"gap_open > gap_extend is outside the kernel's contract: {params}")
     if W < 1 or W > MAX_WIDTH:
         raise ValueError(f"window width {W} outside 1..{MAX_WIDTH}")
+    why = int16_range_error(R, W, params)
+    if why and min(R, W) * params.match > MAX_SCORE:
+        # reads padded past their lengths (the pipeline pads to
+        # max_read_len): the bound is the batch's own, one read-back
+        why = int16_range_error(R, W, params, longest_span(read_lens, ref_lens, R, W))
+    if why:
+        raise ValueError(f"outside the int16 kernel's contract: {why}")
     return _build.load(), C, R, W
 
 

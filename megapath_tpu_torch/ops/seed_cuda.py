@@ -20,6 +20,10 @@ from megapath_tpu_torch.align.seeding_dev import DeviceFM, DeviceSeeds, check_wa
 from megapath_tpu_torch.ops import _build
 from megapath_tpu_torch.ops.dp_cuda import check_tensor
 
+# The most seed slots a walker the kernel takes (``kMaxSeeds`` in
+# mmp_seed.cu); the engine asks for min(16, max(4, L // 16 + 2)).
+MAX_SEEDS = 16
+
 # Kernel launches since the last reset; chip_smoke.py zeroes them and
 # reads them back to show that the main path went through the kernels.
 walk_launches = 0  # mp_mmp_seed
@@ -66,8 +70,9 @@ def mmp_seed_cuda(
     if lens.shape[0] != Wn:
         raise ValueError(f"row counts differ: walkers {Wn}, lens {lens.shape[0]}")
     check_walk(L, params)
-    if not 1 <= max_seeds <= 1024:
-        raise ValueError(f"max_seeds {max_seeds} outside 1..1024")
+    if not 1 <= max_seeds <= MAX_SEEDS:
+        raise ValueError(f"max_seeds {max_seeds} outside 1..{MAX_SEEDS}: the kernel "
+                         "stages a walker's slots in shared memory")
     limit = max_steps if max_steps is not None else 3 * L + 64
     out = torch.empty((4, Wn, max_seeds), dtype=torch.int32, device=dev)
     n_seeds = torch.empty(Wn, dtype=torch.int32, device=dev)
