@@ -12,8 +12,8 @@ exits non-zero and prints no result line):
 2. build    -- compiles ``megapath_tpu_torch/csrc/*.cu`` with nvcc into
                ``build/kernels/`` (one nvcc per source, all at once) and
                prints the seconds it took and ptxas' register and spill
-               counts; compiles the host C++ (``csrc/host/*.cpp``, bbduk
-               and SPIKE) with g++ into ``build/host/``.
+               counts; compiles the host C++ (``csrc/host/*.cpp``: bbduk,
+               SPIKE and the FASTQ reader) with g++ into ``build/host/``.
    The toy workload (4 x 2 Mbp, 20,000 pairs x 100 bp, made here as
    ``bench.py`` makes it, its FM index built on the card) is made next;
    phases 3 and 5 use it.
@@ -76,6 +76,20 @@ exits non-zero and prints no result line):
                those pairs, every taxon row equals the JAX e2e reports';
                1 warm-up and 3 timed ``run_records`` calls, the median
                reads/s and the stage split (bbduk, hg, nt, tail, other).
+11. cli     -- the command line (``megapath_tpu_torch.cli.main``) on the
+               card: the world's FASTAs through ``build-index`` and its
+               gzip FASTQ through ``run -b`` on both seeding paths, the
+               reports, LSAM.id files and BAM content equal to the JAX
+               CLI's records (``tests/fixtures/torch_cli_records.json``);
+               phase 7's 512 Mbp genome as FASTA through ``build-index``
+               (split, pack, build, save times, peak card memory, file
+               sizes); the realistic cell from files: the community
+               through ``build-index``, its pairs and the human pairs as
+               gzip FASTQ through ``run -L 100`` with both indexes loaded
+               from disk (reports and LSAM.id equal the JAX CLI's record of
+               the same NT input, taxon rows equal phase 10's), then ``run
+               -b`` (the "bam" stage, the traceback's seconds, a sorted
+               merged BAM with one primary line per read end with a hit).
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -87,7 +101,9 @@ walk and the locate). The line before the last lists the kernels as JSON; the la
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gzip
 import hashlib
 import json
 import os
@@ -768,6 +784,119 @@ def record_diff(got: dict, want: dict) -> list:
 
 
 # ----------------------------------------------------------------------
+# the command line's files (phase 11; the CPU tests and
+# tests/fixtures/make_torch_cli_records.py use them with either CLI)
+# ----------------------------------------------------------------------
+# the world's index flags (world_pipeline's sa_interval and lut_k); the NT
+# FASTA splits into world_workload's two shards at 15,000 bp
+WORLD_INDEX_ARGS = ("--sa-interval", "4", "--lut-k", "6")
+WORLD_SHARD_BP = 15_000
+
+
+def write_fasta(path: Path, entries) -> None:
+    """(name, description, codes) entries as FASTA, one line a sequence."""
+    with open(path, "w") as f:
+        for name, desc, codes in entries:
+            f.write(f">{name} {desc}\n" if desc else f">{name}\n")
+            f.write(_text(codes))
+            f.write("\n")
+
+
+def write_fastq_pairs(pairs, p1: Path, p2: Path) -> None:
+    """(name, seq1, qual1, seq2, qual2) pairs as two gzip FASTQ files,
+    the names with /1 and /2."""
+    with gzip.open(p1, "wt", compresslevel=1) as f1, gzip.open(p2, "wt", compresslevel=1) as f2:
+        for name, s1, q1, s2, q2 in pairs:
+            f1.write(f"@{name}/1\n{s1}\n+\n{q1}\n")
+            f2.write(f"@{name}/2\n{s2}\n+\n{q2}\n")
+
+
+def write_world_files(world, d: Path) -> None:
+    """``world_workload``'s inputs as the CLI reads them, under ``d``: the
+    NT, hg and ribo FASTAs, the TruSeq adapter FASTA and the pairs as
+    gzip FASTQ; and the directories the indexes go to."""
+    for k in ("nt", "hg", "ribo"):
+        (d / k).mkdir(parents=True, exist_ok=True)
+    write_fasta(d / "nt.fa", world["nt"][0] + world["nt"][1])
+    write_fasta(d / "hg.fa", world["hg"])
+    write_fasta(d / "ribo.fa", world["ribo"])
+    (d / "adapters.fa").write_text(f">truseq\n{TRUSEQ}\n")
+    write_fastq_pairs(world["pairs"], d / "r1.fq.gz", d / "r2.fq.gz")
+
+
+def world_build_argvs(d: Path) -> list:
+    """``build-index`` of the world's NT (two shards), hg and ribo
+    references, each into its own directory under ``d``."""
+    return [["build-index", str(d / f"{k}.fa"), str(d / k / k), *extra, *WORLD_INDEX_ARGS]
+            for k, extra in (("nt", ("--shard-bp", str(WORLD_SHARD_BP))), ("hg", ()),
+                             ("ribo", ()))]
+
+
+def world_run_argv(d: Path, prefix: str, device_seeding: bool, bam: bool = True) -> list:
+    """``run`` over the world's files and indexes (bbduk with the TruSeq
+    table, the hg and ribo filters, two NT shards, 2 x 250 bp)."""
+    return [
+        "run", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+        "--nt-index", str(d / "nt" / "shard0"), str(d / "nt" / "shard1"),
+        "--hg-index", str(d / "hg" / "shard0"), "--ribo-index", str(d / "ribo" / "shard0"),
+        "--adapters", str(d / "adapters.fa"), "--nodes", str(FIX / "nodes.dmp"),
+        "--names", str(FIX / "names.dmp"), "--acc2tid", str(FIX / "acc2tid.map"),
+        "-L", "250",
+    ] + (["-b"] if bam else []) + ([] if device_seeding else ["--no-device-seeding"])
+
+
+def bam_content(path) -> tuple:
+    """(header text, SAM lines) of a BAM: what two BAMs are compared by
+    (BGZF bytes depend on the zlib build)."""
+    from megapath_tpu_torch.io.bam import read_bam
+
+    with open(path, "rb") as f:
+        return read_bam(f)
+
+
+def cli_record(prefix: str, n_shards: int = 0) -> dict:
+    """What the CLI gates compare (either package's ``run``): both reports,
+    the sha256 of both LSAM.id files and, with ``n_shards``, of the merged
+    and each shard's BAM content."""
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    rec = {"report": Path(prefix + ".nt.report").read_text(),
+           "ra_report": Path(prefix + ".nt.ra.report").read_text(),
+           "lsam_sha256": sha(Path(prefix + ".nt.lsam.id").read_bytes()),
+           "ra_lsam_sha256": sha(Path(prefix + ".nt.ra.lsam.id").read_bytes())}
+    if n_shards:
+        rec["bam_sha256"] = {}
+        for suf in [".nt.bam"] + [f".nt.bam.{i}" for i in range(n_shards)]:
+            header, lines = bam_content(prefix + suf)
+            rec["bam_sha256"][suf] = sha("".join([header, *(l + "\n" for l in lines)]).encode())
+    return rec
+
+
+def write_e2e_files(d: Path, genomes, pairs) -> None:
+    """The community as the CLI reads it, under ``d``: its FASTA, its
+    taxonomy and the pairs as gzip FASTQ; and the index's directory."""
+    (d / "nt").mkdir(parents=True, exist_ok=True)
+    write_fasta(d / "community.fa", [(name, "", g) for name, g in genomes])
+    write_e2e_taxonomy(d, len(genomes))
+    write_fastq_pairs(pairs, d / "r1.fq.gz", d / "r2.fq.gz")
+
+
+def e2e_run_argv(d: Path, prefix: str, hg_index=None) -> list:
+    """``run`` of the realistic cell from files: the community as the NT
+    shard, bbduk on with no adapters, device seeding, ``-L 100``."""
+    argv = ["run", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+            "--nt-index", str(d / "nt" / "shard0"), "--nodes", str(d / "nodes.dmp"),
+            "--names", str(d / "names.dmp"), "--acc2tid", str(d / "acc2tid.map"),
+            "-L", "100"]
+    return argv + (["--hg-index", str(hg_index)] if hg_index else [])
+
+
+# the community's index flags (phase 10's sa_interval and lut_k)
+E2E_INDEX_ARGS = ("--sa-interval", "8", "--lut-k", "8")
+
+
+# ----------------------------------------------------------------------
 # phases on the card
 # ----------------------------------------------------------------------
 def phase_device() -> str:
@@ -790,7 +919,7 @@ def phase_build() -> None:
     secs = _build.build(force=True)
     print(f"[build] nvcc built {_build.LIB_PATH.name} in {secs:.1f} s")
     t = time.perf_counter()
-    libs = [native.build(name, force=True).name for name in ("bbduk", "spike")]
+    libs = [native.build(name, force=True).name for name in ("bbduk", "spike", "fastq")]
     print(f"[build] g++ built the host libraries {', '.join(libs)} in "
           f"{time.perf_counter() - t:.1f} s")
     # ptxas -v: an entry function's mangled name (dp_wave_kernel<G, CH,
@@ -1440,6 +1569,271 @@ def check_e2e(res, want: dict, recs, first: bool) -> None:
     raise AssertionError(f"[pipeline] the large pipeline differs from the JAX e2e run: {bad}")
 
 
+class _Tee:
+    """A text stream that writes through to another and keeps the text."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s: str) -> int:
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _cli(argv, dev: torch.device) -> tuple:
+    """``megapath_tpu_torch.cli.main(argv --device dev)`` on the host
+    clock: (seconds, the text it wrote to stderr)."""
+    from megapath_tpu_torch import cli
+
+    tee = _Tee(sys.stderr)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(tee):
+        rc = cli.main([*map(str, argv), "--device", str(dev)])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"[cli] {argv[0]} exited {rc}")
+    return time.perf_counter() - t, tee.text()
+
+
+def _stage_seconds(stderr: str) -> dict:
+    """run_files' StageTimer lines ("[TIMER] <stage> took <s> sec.")."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"\[TIMER\] (\S+) took ([\d.]+) sec", stderr)}
+
+
+@contextlib.contextmanager
+def _host_timed(acc: dict, owner, name: str, key: str):
+    """Time every call of ``owner.name`` into ``acc[key]`` (host clock, no
+    card synchronisation: it runs on the pipeline's writer thread)."""
+    fn = getattr(owner, name)
+
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+
+    setattr(owner, name, run)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def _pipeline_stages(timer: StageTimer):
+    """Record the pipeline's own stages (bbduk, hg, ribo) and its NT
+    alignment ("nt") into ``timer`` while the CLI runs it."""
+    stage, shards = MegaPathPipeline._stage, MegaPathPipeline._align_shards
+
+    def align_shards(self, *a, **k):
+        with timer.stage("nt"):
+            return shards(self, *a, **k)
+
+    MegaPathPipeline._stage = lambda self, name: timer.stage(name)
+    MegaPathPipeline._align_shards = align_shards
+    try:
+        yield
+    finally:
+        MegaPathPipeline._stage, MegaPathPipeline._align_shards = stage, shards
+
+
+def _cli_records() -> dict:
+    return json.loads((FIX / "torch_cli_records.json").read_text())
+
+
+def cli_world(dev: torch.device, smi: str, d: Path) -> None:
+    """The world's FASTAs through ``build-index`` on the card and its gzip
+    FASTQ through ``run -b`` on device and on host seeding: the reports,
+    both LSAM.id files and the merged and per-shard BAM content equal the
+    JAX command line's (``torch_cli_records.json``)."""
+    want = _cli_records()["world"]
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if pairs_digest(world["pairs"]) != want["input_sha256"]:
+        raise AssertionError("[cli] the world's inputs differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    write_world_files(world, d)
+    build_s = sum(_cli(argv, dev)[0] for argv in world_build_argvs(d))
+    for device_seeding, key in ((True, "device_seeding"), (False, "host_seeding")):
+        zero_counts()
+        dt, _ = _cli(world_run_argv(d, str(d / key), device_seeding), dev)
+        counts = read_counts()
+        _require_launches("cli world", counts, ("dp_full", "mmp_seed", "locate")
+                          if device_seeding else ("dp_full",))
+        got = cli_record(str(d / key), n_shards=2)
+        bad = [(k, *text_diff(got[k], want[key][k])) for k in ("report", "ra_report")
+               if got[k] != want[key][k]]
+        bad += [k for k in ("lsam_sha256", "ra_lsam_sha256", "bam_sha256")
+                if got[k] != want[key][k]]
+        if bad:
+            raise AssertionError(f"[cli] world {key}: differs from the JAX CLI's record: {bad}")
+        print(f"[cli] world, {key}: build-index of nt (2 shards), hg, ribo on the card "
+              f"{build_s:.3f} s; run -b {dt:.3f} s; reports, both LSAM.id files and the "
+              f"merged and 2 shard BAMs' content equal the JAX CLI's; launches {counts} [{smi}]")
+
+
+def cli_index_large(dev: torch.device, smi: str, ref: PackedReference, d: Path) -> str:
+    """``large_workload``'s 512 Mbp genome as FASTA through ``build-index``
+    on the card: the split, pack, build and save times, the build's peak
+    card memory in bytes a character (which must not exceed
+    ``shard.BUILD_BYTES_PER_CHAR``, the figure the refusal uses) and the
+    file sizes. Returns the index prefix."""
+    import gc
+
+    from megapath_tpu_torch.index import fm as fm_mod
+    from megapath_tpu_torch.index import pack as pack_mod
+    from megapath_tpu_torch.index import shard as shard_mod
+
+    (d / "hg").mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    write_fasta(d / "hg.fa", [(name, "", ref.codes[ref.offsets[i]:ref.offsets[i + 1]])
+                              for i, name in enumerate(ref.names)])
+    write_s = time.perf_counter() - t
+    split = Split()
+    patches = [(shard_mod, "split_fasta", "split"), (pack_mod, "pack_fasta_file", "pack"),
+               (fm_mod, "build_fm_index", "build"), (pack_mod.PackedReference, "save", "save"),
+               (fm_mod.FMIndex, "save", "save")]
+    orig = [getattr(o, n) for o, n, _ in patches]
+    for o, n, k in patches:
+        setattr(o, n, split.wrap(k, getattr(o, n)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        dt, _ = _cli(["build-index", d / "hg.fa", d / "hg" / "hg", "--sa-interval", "4",
+                      "--lut-k", "8"], dev)
+    finally:
+        for (o, n, _), fn in zip(patches, orig):
+            setattr(o, n, fn)
+    n = ref.total_len
+    per_char = (torch.cuda.max_memory_allocated(dev) - base) / n
+    total = torch.cuda.get_device_properties(dev).total_memory
+    sizes = {p.name: p.stat().st_size for p in sorted((d / "hg").glob("shard0.*.npz"))}
+    t = split.t
+    print(f"[cli] build-index of the {n} bp shard on the card: {dt:.3f} s = FASTA split "
+          f"{t['split']:.3f} s, pack {t['pack']:.3f} s, build {t['build']:.3f} s, save "
+          f"{t['save']:.3f} s, rest {dt - sum(t.values()):.3f} s (the FASTA written in "
+          f"{write_s:.3f} s); card peak {per_char * n / 2**30:.2f} GiB above "
+          f"{base / 2**30:.2f} GiB = {per_char:.2f} bytes a character: {total} bytes of card "
+          f"memory hold {int(total // per_char)} bp; files {sizes} [{smi}]")
+    if per_char > shard_mod.BUILD_BYTES_PER_CHAR:
+        raise AssertionError(
+            f"[cli] the build took {per_char:.2f} bytes a character, more than the "
+            f"{shard_mod.BUILD_BYTES_PER_CHAR} the refusal of a large shard assumes")
+    return str(d / "hg" / "shard0")
+
+
+def cli_realistic(dev: torch.device, smi: str, large_batch, hg_index: str, d: Path) -> dict:
+    """The realistic cell from files: the community through ``build-index``
+    on the card, its 50,000 pairs and the 512 Mbp workload's 20,000 as
+    gzip FASTQ, ``run --hg-index --nt-index -L 100`` with both indexes
+    loaded from disk, then once more with ``-b``. Gates: walks, locates and
+    ``dp_full`` launched; the human pairs the filter keeps and the reports
+    and LSAM.id equal the JAX CLI's record of the same NT input; the -b
+    run's reports equal the first's, and its merged BAM round-trips, is
+    sorted and has one primary line per read end with a hit. Returns the
+    first run's launch counts."""
+    from megapath_tpu_torch import cli
+    from megapath_tpu_torch.io import sam as sam_mod
+    from megapath_tpu_torch.io.bam import sort_sam_lines
+
+    want = _cli_records()["e2e"]
+    genomes, pairs = e2e_workload()
+    if pairs_digest(pairs) != want["input_sha256"]:
+        raise AssertionError("[cli] the community's reads differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    write_e2e_files(d, genomes, pairs + human_pairs(*large_batch))
+    nt_s, _ = _cli(["build-index", d / "community.fa", d / "nt" / "nt", *E2E_INDEX_ARGS], dev)
+    loads = Split()
+    orig_load = cli.load_shard
+    cli.load_shard = loads.wrap("load", orig_load)
+    stages = StageTimer(out=open(os.devnull, "w"))
+    try:
+        zero_counts()
+        with _pipeline_stages(stages):
+            dt, err = _cli(e2e_run_argv(d, str(d / "run"), hg_index), dev)
+        counts = read_counts()
+        load_s = loads.t["load"]
+        loads.t.clear()
+        acc = {}
+        with _host_timed(acc, sam_mod, "sw_traceback_batch", "traceback"), \
+                _host_timed(acc, MegaPathPipeline, "_write_batch_sam", "sam"):
+            dt_b, err_b = _cli(e2e_run_argv(d, str(d / "runb"), hg_index) + ["-b"], dev)
+        load_b = loads.t["load"]
+    finally:
+        cli.load_shard = orig_load
+    _require_launches("cli", counts, ("dp_full", "mmp_seed", "locate"))
+    got = cli_record(str(d / "run"))
+    lsam = (d / "run.nt.lsam.id").read_text().splitlines()
+    kept = [ln.split("\t", 1)[0] for ln in lsam[::2] if ln.startswith("hg")]
+    key = {(): "alone", tuple(want["hg_kept"]): "with_hg_kept"}.get(tuple(kept))
+    bad = [] if key else [f"the human filter kept {kept[:10]}"]
+    if key:
+        bad += [(k, *text_diff(got[k], want[key][k])) for k in ("report", "ra_report")
+                if got[k] != want[key][k]]
+        bad += [k for k in ("lsam_sha256", "ra_lsam_sha256") if got[k] != want[key][k]]
+    # the community's classification equals phase 10's JAX e2e record's
+    e2e = _pipeline_records()["e2e"]
+    bad += [f"{k}: taxon rows differ from the JAX e2e run's" for k in ("report", "ra_report")
+            if taxon_rows(got[k]) != taxon_rows(e2e[k])]
+    got_b = cli_record(str(d / "runb"))
+    bad += [f"-b run: {k}" for k in got if got_b[k] != got[k]]
+    header, lines = bam_content(str(d / "runb.nt.bam"))
+    if sort_sam_lines(header, lines) != lines:
+        bad.append("the merged BAM is not sorted")
+    primary = collections.Counter(
+        (c[0], 64 if int(c[1]) & 0x40 else 128)
+        for c in (ln.split("\t", 2) for ln in lines) if not int(c[1]) & 0x100)
+    with_hit = {(c[0], int(c[1])) for c in (
+        ln.split("\t", 3) for ln in (d / "runb.nt.raw.lsam.id").read_text().splitlines())
+        if int(c[2]) > 0}
+    if set(primary) != with_hit or set(primary.values()) != {1}:
+        bad.append(f"primary BAM lines: {len(primary)} read ends (at most "
+                   f"{max(primary.values(), default=0)} each) vs {len(with_hit)} with a hit")
+    if bad:
+        raise AssertionError(f"[cli] the realistic run from files: {bad}")
+    n_in = len(pairs) + len(large_batch[0])
+    st, st_b = _stage_seconds(err), _stage_seconds(err_b)
+    print(f"[cli] realistic run from files ({n_in} pairs x 100 bp, gzip FASTQ): "
+          f"build-index of the community {nt_s:.3f} s; run {dt:.3f} s = index loads "
+          f"{load_s:.3f} s + the rest {dt - load_s:.3f} s ({2 * n_in / (dt - load_s):.0f} "
+          f"reads/s without the loads); StageTimer " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in st.items())
+          + " (of align: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.summary().items())
+          + f"); the human filter kept {kept}; reports and LSAM.id equal the JAX CLI's "
+          f"record '{key}'; launches {counts} [{smi}]")
+    print(f"[cli] run -b: {dt_b:.3f} s (loads {load_b:.3f} s); StageTimer " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in st_b.items())
+          + f"; SAM lines in the writer thread {acc.get('sam', 0.0):.3f} s, of which "
+          f"traceback {acc.get('traceback', 0.0):.3f} s; merged BAM {len(lines)} lines, "
+          f"{len(primary)} primary, sorted, one primary a read end with a hit [{smi}]")
+    return counts
+
+
+def phase_cli(dev: torch.device, smi: str, large) -> dict:
+    """The command line on the card (``megapath_tpu_torch.cli.main``):
+    the world through build-index and run -b; the 512 Mbp shard through
+    build-index; the realistic cell from files. Returns the realistic
+    run's launch counts."""
+    import tempfile
+
+    ref, _, batch = large
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        cli_world(dev, smi, d / "world")
+        hg_index = cli_index_large(dev, smi, ref, d / "large")
+        return cli_realistic(dev, smi, batch, hg_index, d / "e2e")
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1455,6 +1849,7 @@ def main() -> int:
     phase_pipeline_world(dev, smi)
     counts = phase_pipeline_large(dev, smi, large)
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
+    phase_cli(dev, smi, large)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -7,7 +7,8 @@ checkpoint gather and a count over at most OCC_BLOCK chars. All queries
 are numpy and batch-first. The build runs on a torch device (the suffix
 array by prefix doubling, ``index/suffix.py``, and every table after
 it); the arrays it returns are numpy, equal to the reference's
-(``tests/test_torch_index.py``).
+(``tests/test_torch_index.py``). ``save``/``load`` read and write the
+reference's ``.fm.npz`` (``tests/test_torch_cli.py``).
 
 Interval convention: half-open [lo, hi) over the n+1 rows of the full
 BWT matrix (row 0 = sentinel suffix). ``count = hi - lo``.
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from megapath_tpu_torch.index.pack import save_npz
 from megapath_tpu_torch.index.suffix import bwt_from_sa_t, suffix_array_t
 
 OCC_BLOCK = 128  # bwt symbols per occ checkpoint
@@ -122,6 +124,44 @@ class FMIndex:
         """Packed k-mer codes (base-4, first char most significant) ->
         full-row interval [lo, hi)."""
         return self.lut_lo[kmer].astype(np.int64), self.lut_hi[kmer].astype(np.int64)
+
+    def save(self, path: str) -> None:
+        """The reference's ``.fm.npz`` (``pack.save_npz``): the same keys
+        and dtypes (``sa_sampled`` and ``mark_rank`` int64), an absent
+        k-mer table stored as empty uint32 arrays."""
+        empty = np.zeros(0, np.uint32)
+        save_npz(
+            path,
+            n=self.n,
+            primary=self.primary,
+            bwt_words=self.bwt_words,
+            occ=self.occ,
+            counts=self.counts,
+            sa_sampled=self.sa_sampled,
+            mark_rank=self.mark_rank,
+            sa_interval=self.sa_interval,
+            lut_lo=self.lut_lo if self.lut_lo is not None else empty,
+            lut_hi=self.lut_hi if self.lut_hi is not None else empty,
+            lut_k=self.lut_k,
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "FMIndex":
+        with np.load(path) as z:
+            lut_k = int(z["lut_k"])
+            return cls(
+                n=int(z["n"]),
+                primary=int(z["primary"]),
+                bwt_words=z["bwt_words"],
+                occ=z["occ"],
+                counts=z["counts"],
+                sa_sampled=z["sa_sampled"],
+                mark_rank=z["mark_rank"],
+                sa_interval=int(z["sa_interval"]),
+                lut_lo=z["lut_lo"] if lut_k else None,
+                lut_hi=z["lut_hi"] if lut_k else None,
+                lut_k=lut_k,
+            )
 
 
 def build_fm_index(

@@ -4,12 +4,16 @@ The port's copy of ``megapath_tpu/index/pack.py``: the shard text as a
 numpy uint8 code array (A=0 C=1 G=2 T=3, every non-ACGT byte maps to G
 like the reference's charMap), the sequences concatenated with their
 start offsets so a position maps back to (sequence, offset), and the
-read packer. ``tests/test_torch_index.py`` holds it equal to the
-reference module.
+read packer, and the ``.ref.npz`` file the reference's ``build-index``
+writes (``save``/``load``, the same keys and dtypes, so either package
+loads the other's; ``save_npz`` writes the npz at a faster zlib level). ``tests/test_torch_index.py`` and
+``tests/test_torch_cli.py`` hold it equal to the reference module.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
 from dataclasses import dataclass
 from typing import Iterable, List, Sequence, Tuple
 
@@ -23,12 +27,39 @@ for i, ch in enumerate("ACGT"):
     _CODE[ord(ch)] = i
     _CODE[ord(ch.lower())] = i
 
+_DECODE = np.frombuffer(b"ACGT", dtype=np.uint8)
+
 COMPLEMENT = np.array([3, 2, 1, 0], dtype=np.uint8)  # A<->T, C<->G
+
+
+# zlib level of the index files. The container, member names and arrays
+# are np.savez_compressed's (level 6), so either package's np.load reads
+# them; level 1 writes a 512 Mbp index several times faster (level 6 took
+# 298.6-370.4 s for its ~5.8 GB of arrays on the card's host,
+# chip_smoke.py phase 11) for files ~20% larger
+NPZ_ZLIB_LEVEL = 1
+
+
+def save_npz(path, **arrays) -> None:
+    """``np.savez_compressed(path, **arrays)`` at zlib level
+    ``NPZ_ZLIB_LEVEL``: one deflated ``<key>.npy`` member an array."""
+    path = os.fspath(path)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, allowZip64=True,
+                         compresslevel=NPZ_ZLIB_LEVEL) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(val), allow_pickle=True)
 
 
 def encode_seq(seq: str) -> np.ndarray:
     """ASCII sequence -> uint8 codes 0..3 (non-ACGT -> 2)."""
     return _CODE[np.frombuffer(seq.encode("ascii"), dtype=np.uint8)]
+
+
+def decode_seq(codes: np.ndarray) -> str:
+    return _DECODE[codes].tobytes().decode("ascii")
 
 
 @dataclass
@@ -42,12 +73,43 @@ class PackedReference:
     ambiguous: np.ndarray  # int64 [n_amb, 2] start,end of non-ACGT runs
 
     @property
+    def n_seqs(self) -> int:
+        return len(self.names)
+
+    @property
     def total_len(self) -> int:
         return int(self.offsets[-1])
 
     def seq_of_pos(self, pos: np.ndarray) -> np.ndarray:
         """Global position(s) -> sequence index via searchsorted."""
         return np.searchsorted(self.offsets, np.asarray(pos), side="right") - 1
+
+    def local_pos(self, pos: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        seq_idx = self.seq_of_pos(pos)
+        return seq_idx, np.asarray(pos) - self.offsets[seq_idx]
+
+    def save(self, path: str) -> None:
+        """The reference's ``.ref.npz``: names and annotations as object
+        arrays, so loading needs ``allow_pickle``."""
+        save_npz(
+            path,
+            codes=self.codes,
+            names=np.array(self.names, dtype=object),
+            annotations=np.array(self.annotations, dtype=object),
+            offsets=self.offsets,
+            ambiguous=self.ambiguous,
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "PackedReference":
+        with np.load(path, allow_pickle=True) as z:
+            return cls(
+                codes=z["codes"],
+                names=list(z["names"]),
+                annotations=list(z["annotations"]),
+                offsets=z["offsets"],
+                ambiguous=z["ambiguous"],
+            )
 
 
 def pack_fasta(records: Iterable[FastqRecord]) -> PackedReference:

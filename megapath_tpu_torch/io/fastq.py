@@ -1,8 +1,8 @@
 """FASTQ / FASTA / annotated-FASTQ ("cfq") host-side input.
 
 The port's copy of the part of ``megapath_tpu/io/fastq.py`` that the
-aligner's main path reads with: the record model and the streaming
-reader. Plain Python on the host; the hot path works on the packed numpy
+port reads and writes with: the record model, the streaming reader and
+the writer. Plain Python on the host; the hot path works on the packed numpy
 arrays that ``megapath_tpu_torch.index.pack`` makes from these records.
 ``tests/test_torch_index.py`` holds it equal to the reference module.
 """
@@ -10,13 +10,19 @@ arrays that ``megapath_tpu_torch.index.pack`` makes from these records.
 from __future__ import annotations
 
 import gzip
+import sys
 from dataclasses import dataclass
-from typing import Iterator, List, Optional
+from typing import Iterable, Iterator, List, Optional
 
 
 def open_maybe_gz(path, mode: str = "rt"):
-    """Open ``path`` whether or not it is gzip-compressed."""
+    """Open ``path`` whether or not it is gzip-compressed. A file object
+    is returned as it is, ``"-"`` is stdin (or stdout for writing)."""
+    if hasattr(path, "read") or hasattr(path, "write"):
+        return path
     path = str(path)
+    if path == "-":
+        return sys.stdin if "r" in mode else sys.stdout
     if path.endswith(".gz"):
         return gzip.open(path, mode)
     return open(path, mode)
@@ -86,3 +92,19 @@ def read_fastx(path) -> Iterator[FastqRecord]:
             yield FastqRecord(name=name, seq="".join(chunks), comment=comment)
         else:
             raise ValueError(f"malformed FASTX line: {line[:80]!r}")
+
+
+def write_fastq(records: Iterable[FastqRecord], path, sep: str = "\t") -> None:
+    """Write FASTQ (or FASTA when qual is empty), the comment joined to the
+    name by ``sep``: soap4's cfq output uses a tab, deinterleave a space."""
+    fp = open_maybe_gz(path, "wt")
+    try:
+        for r in records:
+            head = r.name + (sep + r.comment if r.comment else "")
+            if r.qual:
+                fp.write(f"@{head}\n{r.seq}\n+\n{r.qual}\n")
+            else:
+                fp.write(f">{head}\n{r.seq}\n")
+    finally:
+        if fp is not path and fp is not sys.stdout:
+            fp.close()

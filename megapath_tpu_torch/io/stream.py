@@ -1,7 +1,10 @@
 """Async batched read streaming (replaces soap4's aio_thread.cpp).
 
-The port's copy of ``megapath_tpu/io/stream.py`` with its Python reader.
-The reference overlaps gzip/FASTQ parsing with alignment using an IO
+The port's copy of ``megapath_tpu/io/stream.py``. Paths go through the
+C++ reader (``native.NativeFastqReader``), file objects through the
+Python reader, the reference's choice by input type; a C++ reader that
+cannot be built raises and is never replaced by the Python one. The
+reference overlaps gzip/FASTQ parsing with alignment using an IO
 thread and two swap buffers (aio_thread.h:55-60 BufferStatus state
 machine). Here a reader thread parses and *packs* read-pair batches
 into fixed-shape arrays while the engines work on the previous batch;
@@ -37,7 +40,40 @@ class ReadBatch:
         return len(self.names)
 
 
+def _native_batch_iter(r1_path, r2_path, batch_size: int, max_len: int):
+    """Parse and pack in the C++ reader (aio_thread.cpp equivalent); the
+    string fields come from the raw ASCII rows."""
+    from megapath_tpu_torch.native import NativeFastqReader
+
+    def rows_to_str(arr, lens):
+        return [arr[i, : lens[i]].tobytes().decode() for i in range(len(lens))]
+
+    with NativeFastqReader(str(r1_path), max_len) as f1, NativeFastqReader(
+        str(r2_path), max_len
+    ) as f2:
+        while True:
+            c1, l1, q1, s1, n1 = f1.next_batch(batch_size)
+            c2, l2, q2, s2, n2 = f2.next_batch(batch_size)
+            m = min(len(n1), len(n2))
+            if m == 0:
+                return
+            yield ReadBatch(
+                n1[:m],
+                rows_to_str(s1, l1[:m]),
+                rows_to_str(q1, l1[:m]),
+                rows_to_str(s2, l2[:m]),
+                rows_to_str(q2, l2[:m]),
+                c1[:m],
+                l1[:m],
+                c2[:m],
+                l2[:m],
+            )
+
+
 def _batch_iter(r1_path, r2_path, batch_size: int, max_len: int):
+    if not (hasattr(r1_path, "read") or hasattr(r2_path, "read")):
+        yield from _native_batch_iter(r1_path, r2_path, batch_size, max_len)
+        return
     it1 = read_fastx(r1_path)
     it2 = read_fastx(r2_path)
     while True:

@@ -15,12 +15,18 @@ run them, and ``chip_smoke.py`` holds the CUDA kernels against them.
 the tensors' device: the plain version for CPU tensors, the hand-written
 kernel (``ops/dp_cuda.py``) for CUDA tensors, and never one in place of
 the other.
+
+``sw_traceback``, ``sw_traceback_ops`` and ``sw_traceback_batch`` are the
+reference's host numpy tracebacks (the CIGARs of the SAM/BAM sink),
+copied as they are: they run only on reported hits, on the host, in the
+same tie order with the same direction-plane bits and 256 MB chunks.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -180,3 +186,239 @@ def sw_align_full_auto(
 
         return sw_align_full_cuda(reads, refs, read_lens, ref_lens, params)
     raise ValueError(f"no DP for tensors on {reads.device}")
+
+
+def sw_traceback(
+    read: np.ndarray, ref: np.ndarray, end_ref: int, end_read: int,
+    params: DPParams = DPParams(),
+) -> Tuple[int, int, str, int]:
+    """Recompute the DP up to the end cell and trace back.
+
+    Returns (start_ref, start_read, cigar, edit_distance) where cigar
+    covers read[start_read:end_read] with soft clips added by callers.
+    Host-side: runs only on reported hits (a tiny fraction of DP work).
+    """
+    i, j, ops = sw_traceback_ops(read, ref, end_ref, end_read, params)
+    cigar = _runlength(ops)
+    edit = sum(1 for o in ops if o in "XID")
+    return i, j, cigar, edit
+
+
+def sw_traceback_ops(
+    read: np.ndarray, ref: np.ndarray, end_ref: int, end_read: int,
+    params: DPParams = DPParams(),
+) -> Tuple[int, int, list]:
+    """Like sw_traceback but returns the raw per-cell op list
+    (M/X/I/D, mismatches NOT folded into M) — variant extraction
+    needs the distinction."""
+    R, W = int(end_read), int(end_ref)
+    read = np.asarray(read[:R], dtype=np.int64)
+    ref = np.asarray(ref[:W], dtype=np.int64)
+    H = np.zeros((W + 1, R + 1), dtype=np.int64)
+    E = np.full((W + 1, R + 1), NEG, dtype=np.int64)
+    F = np.full((W + 1, R + 1), NEG, dtype=np.int64)
+    for j in range(1, R + 1):
+        sub = np.where(ref == read[j - 1], params.match, params.mismatch)
+        for i in range(1, W + 1):
+            E[i, j] = max(E[i - 1, j] + params.gap_extend, H[i - 1, j] + params.gap_open)
+            F[i, j] = max(F[i, j - 1] + params.gap_extend, H[i, j - 1] + params.gap_open)
+            H[i, j] = max(0, H[i - 1, j - 1] + sub[i - 1], E[i, j], F[i, j])
+    i, j = W, R
+    ops: list = []
+    state = "H"
+    while i > 0 and j > 0 and not (state == "H" and H[i, j] == 0):
+        if state == "H":
+            s = params.match if read[j - 1] == ref[i - 1] else params.mismatch
+            if H[i, j] == H[i - 1, j - 1] + s:
+                ops.append("M" if read[j - 1] == ref[i - 1] else "X")
+                i, j = i - 1, j - 1
+            elif H[i, j] == E[i, j]:
+                state = "E"
+            else:
+                state = "F"
+        elif state == "E":  # deletion from read (ref consumed)
+            ops.append("D")
+            if E[i, j] == H[i - 1, j] + params.gap_open:
+                state = "H"
+            i -= 1
+        else:  # F: insertion to read (read consumed)
+            ops.append("I")
+            if F[i, j] == H[i, j - 1] + params.gap_open:
+                state = "H"
+            j -= 1
+    ops.reverse()
+    return i, j, ops
+
+
+def sw_traceback_batch(
+    reads: np.ndarray,  # uint8 [B, R] oriented read codes
+    windows: np.ndarray,  # uint8 [B, W] ref window codes
+    end_ref: np.ndarray,  # int [B] traceback start (ref cells used)
+    end_read: np.ndarray,  # int [B]
+    params: DPParams = DPParams(),
+    chunk_bytes: int = 256 << 20,
+) -> Tuple[np.ndarray, np.ndarray, list, np.ndarray]:
+    """Batched ``sw_traceback`` over all hits at once.
+
+    The per-hit Python double loop (O(W*R) cells each) is replaced by
+    a fill vectorized over (hits, window) — one pass over read columns
+    using the same prefix-max E decoupling as the device kernel — that
+    stores a per-cell direction byte, then a lockstep vectorized
+    traceback walks every hit simultaneously. Decisions compare the
+    same values in the same priority order as ``sw_traceback_ops``, so
+    the per-hit (start_ref, start_read, cigar, edit) are identical.
+
+    Returns (start_ref [B], start_read [B], cigars list[str],
+    edit_distances [B]).
+    """
+    B, R = reads.shape
+    W = windows.shape[1]
+    out_sr = np.zeros(B, np.int64)
+    out_sj = np.zeros(B, np.int64)
+    out_cigars: list = [""] * B
+    out_edit = np.zeros(B, np.int64)
+    if B == 0:
+        return out_sr, out_sj, out_cigars, out_edit
+    cb = max(1, int(chunk_bytes // max(W * R, 1)))
+    for lo in range(0, B, cb):
+        hi = min(lo + cb, B)
+        sr, sj, cigs, ed = _traceback_chunk(
+            reads[lo:hi], windows[lo:hi],
+            np.asarray(end_ref[lo:hi], np.int64),
+            np.asarray(end_read[lo:hi], np.int64), params,
+        )
+        out_sr[lo:hi] = sr
+        out_sj[lo:hi] = sj
+        out_cigars[lo:hi] = cigs
+        out_edit[lo:hi] = ed
+    return out_sr, out_sj, out_cigars, out_edit
+
+
+def _traceback_chunk(reads, windows, end_ref, end_read, params):
+    B, R = reads.shape
+    W = windows.shape[1]
+    match = np.int64(params.match)
+    mm = np.int64(params.mismatch)
+    go = np.int64(params.gap_open)
+    ge = np.int64(params.gap_extend)
+    reads_i = reads.astype(np.int64)
+    wins_i = windows.astype(np.int64)
+    decay = np.arange(W, dtype=np.int64)[None, :] * ge
+
+    # direction plane: bits 0-1 H source (0 stop, 1 diag, 2 E, 3 F),
+    # bit 2 E-open (E == H[i-1,j] + go), bit 3 F-open
+    dirp = np.zeros((B, W, R), np.uint8)
+    H_prev = np.zeros((B, W), np.int64)
+    F_prev = np.full((B, W), NEG, np.int64)
+    for j in range(1, R + 1):
+        sub = np.where(wins_i == reads_i[:, j - 1 : j], match, mm)
+        F = np.maximum(H_prev + go, F_prev + ge)
+        fopen = F == H_prev + go
+        diag = np.concatenate(
+            [np.zeros((B, 1), np.int64), H_prev[:, :-1]], axis=1
+        ) + sub
+        H_noE = np.maximum(np.maximum(diag, F), 0)
+        # E[i] = max_{k<i} H_noE[k] + go + (i-1-k)*ge  (prefix max;
+        # opening from an E-valued cell is never optimal for go <= ge,
+        # so values equal the oracle's H-or-E chain exactly)
+        Y = H_noE + go - decay
+        Ycum = np.maximum.accumulate(Y, axis=1)
+        E = np.concatenate(
+            [np.full((B, 1), NEG, np.int64), Ycum[:, :-1]], axis=1
+        ) + decay - ge
+        H = np.maximum(H_noE, E)
+        eopen = E == np.concatenate(
+            [np.zeros((B, 1), np.int64), H[:, :-1]], axis=1
+        ) + go
+        code = np.where(
+            H == 0,
+            0,
+            np.where(H == diag, 1, np.where(H == E, 2, 3)),
+        ).astype(np.uint8)
+        dirp[:, :, j - 1] = (
+            code | (eopen.astype(np.uint8) << 2)
+            | (fopen.astype(np.uint8) << 3)
+        )
+        H_prev, F_prev = H, F
+
+    # lockstep traceback (state machine identical to sw_traceback_ops)
+    i = end_ref.copy()
+    j = end_read.copy()
+    state = np.zeros(B, np.uint8)  # 0=H, 1=E, 2=F
+    T = 2 * (W + R) + 4
+    ops_buf = np.zeros((B, T), np.uint8)  # back-to-front; 1M 2X 3I 4D
+    n_ops = np.zeros(B, np.int64)
+    bidx = np.arange(B)
+    active = (i > 0) & (j > 0)
+    for _ in range(T):
+        if not active.any():
+            break
+        d = np.zeros(B, np.uint8)
+        d[active] = dirp[bidx[active], i[active] - 1, j[active] - 1]
+        code = d & 3
+        # H state
+        mH = active & (state == 0)
+        stop = mH & (code == 0)
+        active = active & ~stop
+        mH = mH & ~stop
+        mdiag = mH & (code == 1)
+        if mdiag.any():
+            is_m = (
+                reads_i[bidx[mdiag], j[mdiag] - 1]
+                == wins_i[bidx[mdiag], i[mdiag] - 1]
+            )
+            ops_buf[bidx[mdiag], n_ops[mdiag]] = np.where(is_m, 1, 2)
+            n_ops[mdiag] += 1
+            i[mdiag] -= 1
+            j[mdiag] -= 1
+        state[mH & (code == 2)] = 1
+        state[mH & (code == 3)] = 2
+        # E state: append D, maybe close, consume ref
+        mE = active & (state == 1)
+        if mE.any():
+            ops_buf[bidx[mE], n_ops[mE]] = 4
+            n_ops[mE] += 1
+            close = mE & ((d >> 2) & 1 == 1)
+            state[close] = 0
+            i[mE] -= 1
+        # F state: append I, maybe close, consume read
+        mF = active & (state == 2)
+        if mF.any():
+            ops_buf[bidx[mF], n_ops[mF]] = 3
+            n_ops[mF] += 1
+            close = mF & ((d >> 3) & 1 == 1)
+            state[close] = 0
+            j[mF] -= 1
+        active = active & (i > 0) & (j > 0)
+
+    # per-hit run-length encode (X folds into M for the CIGAR text,
+    # counts as edit distance); ops were emitted back-to-front
+    edit = ((ops_buf >= 2) & (ops_buf <= 4)).sum(axis=1)
+    sym_of = np.array(["", "M", "M", "I", "D"])
+    cigars = []
+    for b in range(B):
+        k = int(n_ops[b])
+        if k == 0:
+            cigars.append("")
+            continue
+        seq = ops_buf[b, :k][::-1]
+        sym = np.where(seq == 2, 1, seq)
+        bounds = np.flatnonzero(np.r_[True, sym[1:] != sym[:-1]])
+        counts = np.diff(np.r_[bounds, k])
+        cigars.append(
+            "".join(
+                f"{c}{sym_of[sym[p]]}" for p, c in zip(bounds, counts)
+            )
+        )
+    return i, j, cigars, edit
+
+
+def _runlength(ops: list) -> str:
+    out = []
+    for o in ops:
+        sym = "M" if o in ("M", "X") else o
+        if out and out[-1][1] == sym:
+            out[-1][0] += 1
+        else:
+            out.append([1, sym])
+    return "".join(f"{n}{s}" for n, s in out)

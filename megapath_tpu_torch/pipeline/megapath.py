@@ -12,18 +12,21 @@ packages and stays on the host here.
 Stage semantics follow the reference's runMegaPath.sh:105-265; the
 inter-stage LSAM text round-trips are internalized. The reports and the
 LSAM lines are byte-identical to the JAX pipeline's
-(``tests/test_torch_pipeline.py``).
+(``tests/test_torch_pipeline.py``). ``PipelineConfig.bam`` adds the BAM
+sink to ``run_files``: per-shard sorted BAMs and the merged
+``PREFIX.nt.bam`` (soap4 -b + samtools, runMegaPath.sh:199-216), whose
+content equals the JAX pipeline's (``tests/test_torch_cli.py``).
 
 Left out, and refused with NotImplementedError naming the ROADMAP item
-that ports them: the BAM sink (``PipelineConfig.bam``, A8), assembly and
-the protein remap (A9), the one-program SPMD backend
-(``PipelineConfig.spmd``) and multi-device shard placement
+that ports them: assembly and the protein remap (A9), the one-program
+SPMD backend (``PipelineConfig.spmd``) and multi-device shard placement
 (``devices=``, A10).
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import os
 import queue
 import shutil
@@ -43,8 +46,10 @@ from megapath_tpu_torch.filters.bbduk import KmerRef, bbduk_pair_arrays
 from megapath_tpu_torch.filters.spike import spike_read_filter
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import PackedReference, pack_reads
+from megapath_tpu_torch.io.bam import merge_shard_bams, sort_sam_lines, write_bam
 from megapath_tpu_torch.io.fastq import FastqRecord, trim_readno
 from megapath_tpu_torch.io.lsam import LsamRecord
+from megapath_tpu_torch.io.sam import hits_to_sam, sam_header
 from megapath_tpu_torch.io.stream import stream_read_pairs
 from megapath_tpu_torch.taxonomy.report import KrakenReport
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB, get_correct_acc, remove_version
@@ -81,8 +86,8 @@ class PipelineConfig:
     # ribosome filter (-S): extract threshold 0.95 * pair length
     # (runMegaPath.sh:162, extractFromLSAM.pl fractional -t)
     ribo_cutoff: float = 0.95
-    # the reference package's BAM sink (per-shard BAMs + the merged
-    # PREFIX.nt.bam, runMegaPath.sh:199-216): refused until ROADMAP A8
+    # run_files also writes per-shard BAMs + the merged, sorted
+    # PREFIX.nt.bam (soap4 -b + samtools, runMegaPath.sh:199-216)
     bam: bool = False
     # the reference package's one-program SPMD backend for stage 2:
     # refused until ROADMAP A10
@@ -169,8 +174,6 @@ class MegaPathPipeline:
             raise NotImplementedError(
                 "PipelineConfig.spmd: the one-program SPMD backend is ROADMAP A10"
             )
-        if self.cfg.bam:
-            raise NotImplementedError("PipelineConfig.bam: the BAM sink is ROADMAP A8")
         self.taxdb = taxdb
         self.adapters = adapters
         self.device = torch.device(device)
@@ -330,7 +333,8 @@ class MegaPathPipeline:
                             return
                         try:
                             (bi, recs1, recs2, best_b, brows, bspk,
-                             bcounters, base_before, base_after) = item
+                             bcounters, base_before, base_after,
+                             bsam) = item
                             for rec in self._build_lsam_records(
                                 recs1, recs2,
                                 np.ones(base_after - base_before, bool),
@@ -338,6 +342,12 @@ class MegaPathPipeline:
                             ):
                                 lsam_out.write(rec.to_line() + "\n")
                             lsam_out.flush()
+                            if bsam is not None:
+                                # per-(shard, batch) SAM line files; the
+                                # BAM finalize sorts + merges them after
+                                # the align stage (samtools merge/sort,
+                                # runMegaPath.sh:211-216)
+                                self._write_batch_sam(bdir, bi, *bsam)
                             save = dict(
                                 read=brows[0] + base_before, end=brows[1],
                                 sp=brows[2], sk=brows[3], score=brows[4],
@@ -405,10 +415,19 @@ class MegaPathPipeline:
                     read, end, sp, sk, score, best_b = self._merge_arrays(
                         per_shard, n_ribo
                     )
+                    bsam = None
+                    if cfg.bam:
+                        bsam = (
+                            per_shard,
+                            [r.name for r in recs1],
+                            reads1, lens1, reads2, lens2,
+                            [r.qual for r in recs1],
+                            [r.qual for r in recs2],
+                        )
                     wq.put((
                         bi, recs1, recs2, best_b,
                         (read, end, sp, sk, score), bspk, bcounters,
-                        base, base + n_ribo,
+                        base, base + n_ribo, bsam,
                     ))
                     acc_rows.append(
                         (read + base, end, sp, sk, score)
@@ -457,6 +476,9 @@ class MegaPathPipeline:
                  save_kw[f"spk{si}_start"], save_kw[f"spk{si}_stop"])
                 for si in range(len(self.nt_engines))
             ]
+            if cfg.bam:
+                with timer.stage("bam"):
+                    self._finalize_bam(bdir, out_prefix)
             with open(out_prefix + ".align.done", "w") as f:
                 f.write("ok\n")
             # the stage gate supersedes the per-batch journal; drop it
@@ -520,6 +542,46 @@ class MegaPathPipeline:
             spike_removed=len(banned),
             n_after_ribo=int(counters[3]),
         )
+
+    def _write_batch_sam(
+        self, bdir: str, bi: int, per_shard, names,
+        reads1, lens1, reads2, lens2, quals1, quals2,
+    ) -> None:
+        """One batch's per-shard SAM alignment lines (writer thread)."""
+        for si, hits in enumerate(per_shard):
+            path = os.path.join(bdir, f"sam{si}_{bi:06d}.txt")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                if len(hits):
+                    for line in hits_to_sam(
+                        hits, self.nt_engines[si].ref, names,
+                        reads1, lens1, reads2, lens2,
+                        quals1=quals1, quals2=quals2,
+                    ):
+                        f.write(line + "\n")
+            os.replace(tmp, path)
+
+    def _finalize_bam(self, bdir: str, out_prefix: str) -> None:
+        """Per-shard sorted BAMs + the merged PREFIX.nt.bam (the
+        samtools merge/sort tail, runMegaPath.sh:211-216)."""
+        shard_paths = []
+        for si in range(len(self.nt_engines)):
+            lines: List[str] = []
+            for p in sorted(glob.glob(os.path.join(bdir, f"sam{si}_*.txt"))):
+                with open(p) as f:
+                    lines.extend(l.rstrip("\n") for l in f if l.strip())
+            header = sam_header(self.nt_engines[si].ref)
+            sp = f"{out_prefix}.nt.bam.{si}"
+            with open(sp, "wb") as f:
+                write_bam(f, header, sort_sam_lines(header, lines))
+            shard_paths.append(sp)
+        with open(out_prefix + ".nt.bam", "wb") as fo:
+            fhs = [open(p, "rb") for p in shard_paths]
+            try:
+                merge_shard_bams(fhs, fo)
+            finally:
+                for f in fhs:
+                    f.close()
 
     # ------------------------------------------------------------------
     def _filter_batch(

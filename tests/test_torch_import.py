@@ -52,6 +52,11 @@ import megapath_tpu_torch.pipeline
 import megapath_tpu_torch.taxonomy.report
 import megapath_tpu_torch.taxonomy.taxdb
 import megapath_tpu_torch.utils.timing
+import megapath_tpu_torch.cli
+import megapath_tpu_torch.classify.taxlookup
+import megapath_tpu_torch.index.shard
+import megapath_tpu_torch.io.bam
+import megapath_tpu_torch.io.sam
 import chip_smoke
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -327,7 +327,6 @@ def test_e2e_sensitivity_fdr_gate(tmp_path):
 # what the port leaves out raises, naming the ROADMAP item
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    ({"config": PipelineConfig(bam=True)}, "A8"),
     ({"config": PipelineConfig(spmd=True)}, "A10"),
     ({"devices": [CPU, CPU]}, "A10"),
 ])
