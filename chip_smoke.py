@@ -9,14 +9,21 @@ exits non-zero and prints no result line):
 
 1. device   -- CUDA must be present; prints torch/CUDA versions and the
                card's name and power limit as nvidia-smi gives them.
-2. build    -- compiles ``megapath_tpu_torch/csrc/*.cu`` with nvcc into
+2. build    -- compiles ``megapath_tpu_torch/csrc/*.cu`` (the kernels and
+               the index build's CUB pair sort) with nvcc into
                ``build/kernels/`` (one nvcc per source, all at once) and
                prints the seconds it took and ptxas' register and spill
-               counts; compiles the host C++ (``csrc/host/*.cpp``: bbduk,
-               SPIKE and the FASTQ reader) with g++ into ``build/host/``.
+               counts (``locate_kernel`` must have a 0-byte stack frame);
+               compiles the host C++ (``csrc/host/*.cpp``: bbduk,
+               SPIKE and the FASTQ reader) with g++ into ``build/host/``;
+               measures the card's dependent-load latency from L2 and
+               from device memory (a pointer chase), the round trip each
+               step of the locate's chain costs.
    The toy workload (4 x 2 Mbp, 20,000 pairs x 100 bp, made here as
    ``bench.py`` makes it, its FM index built on the card) is made next;
-   phases 3 and 5 use it.
+   phases 3 and 5 use it. Its FM index and that of a 1 Mbp tandem repeat
+   (many doubling rounds) built on the card equal the ones built on the
+   CPU (``torch.sort``), key by key.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                every output equal (tolerance 0), median CUDA-event times
                of both beside the bound (the DP's cells at the card's
@@ -35,7 +42,8 @@ exits non-zero and prints no result line):
                1,024 walkers, an odd walker count and 250 bp and 1,023 bp
                walkers, timed also per iteration of the longest walker;
                ``locate`` on every SA row the default walk's seeds expand
-               to.
+               to, beside its chain floor (its longest chain of dependent
+               loads at the L2 latency).
 4. golden   -- the port engine on ``cuda`` over the soap4 fixture, on
                host and on device seeding: 0/200 read-end mismatches
                against the soap4 golden on each.
@@ -55,7 +63,10 @@ exits non-zero and prints no result line):
                built on the card (seconds and peak card memory printed):
                1 warm-up and 3 timed device-seeding passes; the first
                2,000 pairs' hits equal the host-seeding engine's; the
-               full hit count printed beside the JAX engine's 40,044.
+               full hit count printed beside the JAX engine's 40,044;
+               ``locate`` against its plain version on the SA rows of
+               20,480 read ends' seeds, timed beside its chain floor at the
+               device-memory latency.
 8. cascade  -- ``MegaPathPipeline.run_records`` on the real-soap4 cascade
                fixture (two NT shards), on device and on host seeding:
                the report byte-identical to ``cascade/cascade.report``,
@@ -90,6 +101,16 @@ exits non-zero and prints no result line):
                the same NT input, taxon rows equal phase 10's), then ``run
                -b`` (the "bam" stage, the traceback's seconds, a sorted
                merged BAM with one primary line per read end with a hit).
+12. shard   -- the 2.0 Gbp default shard (``index/shard.DEFAULT_SHARD_BP``)
+               on the card: a random text drawn there, ``check_shard_fits``
+               passes, ``build_fm_index`` (sa_interval 8, 8-mer table) with
+               each stage's seconds and peak card memory, at most
+               ``BUILD_BYTES_PER_CHAR`` a character; ``DeviceFM.from_host``
+               and its peak; 2,048 exact 100 bp read ends planted at known
+               positions through ``device_seed_pipeline_loc`` (walk and
+               locate launched, each read end's positions hold its own);
+               ``locate`` against its plain version on those rows, timed
+               beside its chain floor. No file is written.
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -181,10 +202,14 @@ CASCADE = FIX / "cascade"
 # 16x2 form: one cell pair in 6).
 HBM_BYTES_PER_S = 3.35e12
 DP_CELLS_PER_S = 64 * 132 * 1.98e9 / 3
-# what a rank reads of an occ row (4 checkpoints | 8 BWT words; its 4
-# pad words are never loaded)
+# what a rank reads of an occ row (4 checkpoints | 8 BWT words; the walk
+# never loads the 4 mark words), and what a locate's mark test needs of it
 OCC_ROW_BYTES = 48
+MARK_WORDS_BYTES = 16
 MARK_ROW_BYTES = 8  # one mark row: bitmap word, rank checkpoint
+# the locate's dependent loads beyond its LF steps: the row index, the
+# hit's occ row, its mark row and sa_sampled
+CHAIN_EXTRA_LOADS = 4
 
 
 # ----------------------------------------------------------------------
@@ -336,10 +361,19 @@ def walk_bytes(n_walkers: int, L: int, max_seeds: int, stats: dict) -> int:
 
 def locate_bytes(n_rows: int, stats: dict) -> int:
     """Bytes a locate must move, each input read once: each row in and
-    out and one sampled position, every mark row and occ row the walk
-    reads (the plain locate's ``stats``)."""
-    return (n_rows * 12 + stats["mark_rows"] * MARK_ROW_BYTES
-            + stats["occ_rows"] * OCC_ROW_BYTES)
+    out and one sampled position, the mark words of every block a mark is
+    tested in, the checkpoints and BWT words of every block an LF step
+    ranks in, and every mark row it ranks a mark in (the plain locate's
+    ``stats``)."""
+    return (n_rows * 12 + stats["mark_words"] * MARK_WORDS_BYTES
+            + stats["occ_rows"] * OCC_ROW_BYTES + stats["mark_rows"] * MARK_ROW_BYTES)
+
+
+def chain_floor(stats: dict, latency_ns: float) -> tuple:
+    """(dependent loads on the locate's longest chain, the least time
+    they take in ms at ``latency_ns`` a round trip)."""
+    loads = stats["longest"] + CHAIN_EXTRA_LOADS
+    return loads, loads * latency_ns * 1e-6
 
 
 def bound(cells: int, nbytes: int) -> tuple:
@@ -923,15 +957,111 @@ def phase_build() -> None:
     print(f"[build] g++ built the host libraries {', '.join(libs)} in "
           f"{time.perf_counter() - t:.1f} s")
     # ptxas -v: an entry function's mangled name (dp_wave_kernel<G, CH,
-    # bwd> is "dp_wave_kernelILi<G>ELi<CH>ELb<bwd>EE"), then its register line
-    name = "?"
+    # bwd> is "dp_wave_kernelILi<G>ELi<CH>ELb<bwd>EE"), then its stack
+    # frame and register lines; CUB's sort kernels are not listed
+    name, stack = "?", {}
     for ln in _build.LOG_PATH.read_text().splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:L[a-z]\d+E)+E)?", ln)
-            name = m.group(1) + (f"<{','.join(re.findall(r'L[a-z](\d+)E', m.group(2)))}>"
-                                 if m.group(2) else "")
-        elif "registers" in ln or "spill stores" in ln and " 0 bytes spill" not in ln:
+            name = m and m.group(1) + (
+                f"<{','.join(re.findall(r'L[a-z](\d+)E', m.group(2)))}>" if m.group(2) else "")
+        elif name is None:
+            continue
+        elif "bytes stack frame" in ln:
+            stack[name] = ln.strip()
+        if name and ("registers" in ln or "spill stores" in ln and " 0 bytes spill" not in ln):
             print(f"[build] ptxas {name}: {ln.split('ptxas info    :')[-1].strip()}")
+    frame = stack.get("locate_kernel", "no ptxas line")
+    print(f"[build] ptxas locate_kernel: {frame}")
+    if not frame.startswith("0 bytes stack frame"):
+        raise AssertionError(f"[build] locate_kernel keeps a stack frame: {frame}")
+
+
+# one thread follows next[] for `hops` hops; the caller times the launch
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void chase(const uint32_t* __restrict__ next, long long hops,
+                      uint32_t* out) {
+  uint32_t i = 0;
+  for (long long h = 0; h < hops; ++h) i = next[i];
+  *out = i;
+}
+extern "C" int mp_chase(const void* next, long long hops, void* out,
+                        void* stream) {
+  chase<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(next), hops, static_cast<uint32_t*>(out));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+_chase = None
+
+
+def chase_lib():
+    """The pointer-chase probe (``PROBE_SRC``), built with nvcc into
+    ``build/probe/`` at first use: ``mp_chase(next, hops, out, stream)``."""
+    global _chase
+    if _chase is None:
+        import ctypes
+
+        d = HERE / "build" / "probe"
+        d.mkdir(parents=True, exist_ok=True)
+        src, lib_path = d / "chase.cu", d / "libchase.so"
+        src.write_text(PROBE_SRC)
+        subprocess.run([_build._nvcc(), *_build.ARCH, "-O3", "-shared", "-Xcompiler",
+                        "-fPIC", "-o", str(lib_path), str(src)],
+                       check=True, capture_output=True, text=True)
+        _chase = ctypes.CDLL(str(lib_path))
+        _chase.mp_chase.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                    ctypes.c_void_p]
+        _chase.mp_chase.restype = ctypes.c_int
+    return _chase
+
+
+def chase_table(dev: torch.device, nbytes: int) -> torch.Tensor:
+    """One random cycle over ``nbytes`` of 64-byte-apart uint32 entries
+    (int32 [nbytes / 4]) for ``mp_chase``."""
+    n = nbytes // 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    perm = torch.randperm(n, device=dev, generator=g)
+    nxt = torch.zeros(n * 16, dtype=torch.int64, device=dev)
+    nxt[perm * 16] = torch.roll(perm, -1) * 16  # one cycle over all entries
+    return nxt.to(torch.int32)
+
+
+def chase_ms(dev: torch.device, nxt: torch.Tensor, hops: int, reps: int = 10) -> float:
+    """Median ms of one thread's ``hops`` dependent loads through ``nxt``
+    (``_median_ms``; 0 hops: an empty launch timed the same way)."""
+    lib = chase_lib()
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        if lib.mp_chase(nxt.data_ptr(), hops, out.data_ptr(), stream):
+            raise RuntimeError("mp_chase launch failed")
+
+    return _median_ms(run, reps=reps)
+
+
+def load_latency(dev: torch.device, smi: str) -> dict:
+    """ns a dependent load, one thread, through an 8 MB (L2) and a 4 GB
+    (device memory) random cycle of 64-byte-apart entries: the round trip
+    each step of a locate's chain costs. The 4 GB chase visits 2,000,000
+    entries (128 MB of lines) a launch, more than the L2 holds, so the
+    timed launches do not find the warm-up's lines. Returns {"L2": ns,
+    "HBM": ns}."""
+    out_ns = {}
+    for key, name, nbytes, hops in (("L2", "8 MB (L2)", 8 << 20, 200_000),
+                                    ("HBM", "4 GB (HBM)", 4 << 30, 2_000_000)):
+        nxt = chase_table(dev, nbytes)
+        out_ns[key] = 1e6 * chase_ms(dev, nxt, hops, reps=3) / hops
+        print(f"[build] dependent load, {name}: {out_ns[key]:.1f} ns a hop "
+              f"({hops} hops, median of 3) [{smi}]")
+        del nxt
+    torch.cuda.empty_cache()
+    return out_ns
 
 
 # ~1 ms of a spinning kernel ahead of each timed call: the card is busy
@@ -957,6 +1087,8 @@ def _median_ms(fn, reps: int = 10) -> float:
 
 
 def _max_err(got, want, fields) -> dict:
+    if fields is None:  # one output tensor
+        return {"out": int((got.long() - want.long()).abs().max()) if got.numel() else 0}
     return {
         f: int((getattr(got, f).long() - getattr(want, f).long()).abs().max())
         if getattr(got, f).numel() else 0
@@ -1131,14 +1263,14 @@ def long_read_walkers(dev: torch.device, ref_codes: np.ndarray, n: int, L: int, 
     return seeding_dev.build_walkers(torch.from_numpy(reads).to(dev), lens)
 
 
-def kernels_seeding(dev: torch.device, smi: str, toy) -> dict:
+def kernels_seeding(dev: torch.device, smi: str, toy, lat: dict) -> dict:
     """mmp_seed and locate against their plain versions: the walk on 2 x
     4,096 read ends of the toy workload (the engine's walker layout) under
     the default and the exact dials, the exact rescue's shape (1,024
     walkers, exact dials), an odd walker count, and 250 bp and 1,023 bp
     walkers; the locate on every SA row the default walk's seeds expand
-    to. The walk's time is also given per iteration of its longest
-    walker."""
+    to (``check_locate``, its chain at the L2 latency of ``lat``). The
+    walk's time is also given per iteration of its longest walker."""
     ref, fm, reads1, lens1, reads2, lens2 = toy
     dfm = seeding_dev.DeviceFM.from_host(fm, dev)
     reads = np.concatenate([reads1[:2048], reads2[:2048]])
@@ -1193,22 +1325,86 @@ def kernels_seeding(dev: torch.device, smi: str, toy) -> dict:
         print(f"[kernels] mmp_seed refuses max_seeds = {seed_cuda.MAX_SEEDS + 1}: {e}")
     else:
         raise AssertionError(f"[kernels] mmp_seed took max_seeds = {seed_cuda.MAX_SEEDS + 1}")
+    out["locate"] = check_locate("kernels", dfm, rows, lat["L2"], "L2", smi)
+    return out
+
+
+def check_locate(tag: str, dfm, rows: torch.Tensor, latency_ns: float, level: str,
+                 smi: str) -> dict:
+    """The locate kernel against its plain version on ``rows`` (equal at
+    tolerance 0, every row resolved), both timed, beside its bytes bound
+    and its chain floor at ``latency_ns`` a dependent load. Returns the
+    kernels line's entry."""
     got = seed_cuda.locate_cuda(dfm, rows)
     stats = {}
     want = seeding_dev.locate_device_plain(dfm, rows, stats=stats)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    if err or bool((got < 0).any()):
-        raise AssertionError(f"[kernels] locate: kernel != plain (max |err| {err}) or unresolved rows")
+    err = _hold(f"locate {tag}", got, want, None)
+    if bool((got < 0).any()):
+        raise AssertionError(f"[{tag}] locate: unresolved rows")
     ms = _median_ms(lambda: seed_cuda.locate_cuda(dfm, rows))
     plain_ms = _median_ms(lambda: seeding_dev.locate_device_plain(dfm, rows))
     bound_ms, by = bound(0, locate_bytes(len(rows), stats))
-    print(f"[kernels] locate: {len(rows)} SA rows of those seeds, positions equal "
-          f"(tolerance 0); median of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"{stats['lf_steps']} LF steps, {_share(ms, bound_ms)} ({by}) [{smi}]")
-    out["locate"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
-    return out
+    loads, floor_ms = chain_floor(stats, latency_ns)
+    print(f"[{tag}] locate: {len(rows)} SA rows, positions equal (tolerance 0); median "
+          f"of 10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {stats['lf_steps']} LF "
+          f"steps, {_share(ms, bound_ms)} ({by}); chain floor {floor_ms:.4f} ms "
+          f"({loads} dependent loads x {latency_ns:.1f} ns, {level}), "
+          f"{100 * floor_ms / ms:.1f}% of it [{smi}]")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None, "chain_floor_ms": floor_ms}
+
+
+def repeat_text(n: int = 1_000_000, period: int = 1000, seed: int = 5) -> np.ndarray:
+    """A tandem repeat of a random ``period``-long unit with one
+    substitution every ~100 kbp: suffixes share prefixes of up to ~100
+    kbp, so prefix doubling takes ~14 rounds."""
+    rng = np.random.default_rng(seed)
+    t = np.resize(rng.integers(0, 4, period).astype(np.uint8), n)
+    q = rng.integers(0, n, max(1, n // 100_000))
+    t[q] = (t[q] + 1) % 4
+    return t
+
+
+def fm_diff(got, want) -> list:
+    """The FMIndex fields where ``got`` and ``want`` differ, dtypes
+    included."""
+    bad = []
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            if not isinstance(a, np.ndarray) or a.dtype != b.dtype or not np.array_equal(a, b):
+                bad.append(f.name)
+        elif a != b:
+            bad.append(f.name)
+    return bad
+
+
+def phase_index(dev: torch.device, toy) -> None:
+    """The FM index built on the card (CUB's pair sort) equals the one
+    built on the CPU (torch.sort), key by key with dtypes: the toy's text
+    and a 1 Mbp tandem repeat."""
+    from megapath_tpu_torch.ops import sort_cuda
+
+    ref, toy_fm = toy[0], toy[1]
+    for tag, codes, card_fm in (("toy", ref.codes, toy_fm), ("1 Mbp tandem repeat", repeat_text(), None)):
+        rounds = ""
+        if card_fm is None:
+            stages = {}
+            sort_cuda.sort_launches = 0
+            card_fm = build_fm_index(codes, sa_interval=8, lut_k=8, device=dev, stages=stages)
+            n_rounds = sum(k.startswith("sort round") for k in stages)
+            if sort_cuda.sort_launches != n_rounds:
+                raise AssertionError(f"[index] {tag}: {sort_cuda.sort_launches} CUB sorts for "
+                                     f"{n_rounds} doubling rounds")
+            rounds = f", {n_rounds} doubling rounds ({sort_cuda.sort_launches} CUB sorts)"
+        t = time.perf_counter()
+        cpu_fm = build_fm_index(codes, sa_interval=8, lut_k=8, device=torch.device("cpu"))
+        cpu_s = time.perf_counter() - t
+        bad = fm_diff(card_fm, cpu_fm)
+        if bad:
+            raise AssertionError(f"[index] {tag}: the card's FM index differs from the CPU's in {bad}")
+        print(f"[index] {tag} ({len(codes)} bp{rounds}): the FM index built on the card equals "
+              f"the CPU's key by key, dtypes included (CPU build {cpu_s:.1f} s)")
 
 
 def phase_golden(dev: torch.device) -> None:
@@ -1373,7 +1569,7 @@ def phase_slice(dev: torch.device, smi: str, toy) -> None:
     _check_digest("slice host", hits, json.loads((FIX / "torch_toy_hits.json").read_text()))
 
 
-def phase_large(dev: torch.device, smi: str):
+def phase_large(dev: torch.device, smi: str, lat: dict):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1397,7 +1593,25 @@ def phase_large(dev: torch.device, smi: str):
         )
     print(f"[large] the first {LARGE_GATE_PAIRS} pairs: device-seeding hits equal the "
           f"host-seeding engine's ({len(got)} hits)")
+    check_locate("large", engine.dfm, seed_rows(engine.dfm, batch, 10240), lat["HBM"],
+                 "HBM", smi)
     return ref, fm, batch
+
+
+def seed_rows(dfm, batch, n: int) -> torch.Tensor:
+    """Every SA row the default walk's seeds of the first ``n`` pairs'
+    read ends expand to (the engine's walker layout), on the card."""
+    reads1, lens1, reads2, lens2 = batch
+    dev = dfm.rows.device
+    walkers, wlens = seeding_dev.build_walkers(
+        torch.from_numpy(np.concatenate([reads1[:n], reads2[:n]])).to(dev),
+        torch.from_numpy(np.concatenate([lens1[:n], lens2[:n]])).to(dev))
+    L = walkers.shape[1]
+    chg = 3 * L + 64
+    seeds = seed_cuda.mmp_seed_cuda(dfm, walkers, wlens, AlignParams().mmp,
+                                    int(min(16, max(4, L // 16 + 2))), chg, chg)
+    flat = seeding_dev.flatten_seeds(seeds)
+    return seeding_dev.expand_rows(flat.sa_lo, flat.sa_count)
 
 
 def _pipeline_records() -> dict:
@@ -1834,22 +2048,134 @@ def phase_cli(dev: torch.device, smi: str, large) -> dict:
         return cli_realistic(dev, smi, batch, hg_index, d / "e2e")
 
 
+PLANTED_ENDS = 2048  # read ends planted in the default shard
+PLANTED_LEN = 100
+
+
+def host_available_gib() -> float:
+    """The host's available memory (``MemAvailable``), GiB."""
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_shard(dev: torch.device, smi: str, lat: dict) -> float:
+    """The 2.0 Gbp default shard on the card: a random text drawn there,
+    the fit check, the index build with each stage's seconds and peak, the
+    device tables, planted read ends through the device seeding leg, and
+    the locate against its plain version on their rows. Returns the
+    phase's seconds."""
+    import gc
+
+    from megapath_tpu_torch.index import shard as shard_mod
+    from megapath_tpu_torch.ops import sort_cuda
+
+    t_phase = time.perf_counter()
+    n = shard_mod.DEFAULT_SHARD_BP
+    print(f"[shard] host memory available {host_available_gib():.1f} GiB; card "
+          f"{torch.cuda.get_device_properties(dev).total_memory} bytes")
+    shard_mod.check_shard_fits(n, dev)
+    print(f"[shard] check_shard_fits admits the {n} bp default shard at "
+          f"{shard_mod.BUILD_BYTES_PER_CHAR} bytes a character")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(2_000_000_000)
+    codes = torch.randint(0, 4, (n,), dtype=torch.uint8, device=dev, generator=g).cpu().numpy()
+    print(f"[shard] {n} random characters drawn on the card in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages = {}
+    sort_cuda.sort_launches = 0
+    t = time.perf_counter()
+    fm = build_fm_index(codes, sa_interval=8, lut_k=8, device=dev, stages=stages)
+    build_s = time.perf_counter() - t
+    worst = 0.0
+    for name, (sec, peak) in stages.items():
+        per_char = (peak - base) / n
+        worst = max(worst, per_char)
+        print(f"[shard] build stage {name}: {sec:.3f} s, card peak {(peak - base) / 2**30:.2f} "
+              f"GiB = {per_char:.2f} bytes a character")
+    print(f"[shard] build_fm_index of {n} bp on the card: {build_s:.3f} s, "
+          f"{sort_cuda.sort_launches} CUB sorts, peak {worst:.2f} bytes a character "
+          f"(limit {shard_mod.BUILD_BYTES_PER_CHAR}); {len(fm.sa_sampled)} sampled positions "
+          f"[{smi}]")
+    if worst > shard_mod.BUILD_BYTES_PER_CHAR:
+        raise AssertionError(f"[shard] the build took {worst:.2f} bytes a character, more than "
+                             f"the {shard_mod.BUILD_BYTES_PER_CHAR} check_shard_fits assumes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    dfm = seeding_dev.DeviceFM.from_host(fm, dev)
+    torch.cuda.synchronize()
+    print(f"[shard] DeviceFM.from_host: {time.perf_counter() - t:.3f} s, card peak "
+          f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**30:.2f} GiB")
+    # exact read ends planted at known positions: each must be located there
+    rng = np.random.default_rng(2048)
+    at = rng.integers(0, n - PLANTED_LEN, PLANTED_ENDS)
+    reads = codes[at[:, None] + np.arange(PLANTED_LEN)]
+    lens = np.full(PLANTED_ENDS, PLANTED_LEN, np.int32)
+    del fm, codes
+    chg = 3 * PLANTED_LEN + 64
+    zero_counts()
+    flat, pos, _ = seeding_dev.device_seed_pipeline_loc(
+        dfm, torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev),
+        AlignParams().mmp, int(min(16, max(4, PLANTED_LEN // 16 + 2))), chg, chg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _require_launches("shard", counts, ("mmp_seed", "locate"))
+    walker = torch.repeat_interleave(flat.walker.long(), flat.sa_count.long())
+    offset = torch.repeat_interleave(flat.offset.long(), flat.sa_count.long())
+    want = torch.from_numpy(at).to(dev)
+    fwd = walker < PLANTED_ENDS
+    at_planted = ((pos.long() - offset)[fwd] == want[walker[fwd]]).long()
+    found = torch.zeros(PLANTED_ENDS, dtype=torch.int64, device=dev).index_add_(
+        0, walker[fwd], at_planted) > 0
+    if not bool(found.all()):
+        miss = torch.nonzero(~found)[:, 0][:5].tolist()
+        raise AssertionError(f"[shard] {int((~found).sum())} planted read ends not located at "
+                             f"their positions, e.g. {miss}")
+    print(f"[shard] {PLANTED_ENDS} exact {PLANTED_LEN} bp read ends through "
+          f"device_seed_pipeline_loc: {len(flat.walker)} seeds, {len(pos)} SA rows, every "
+          f"read end located at its planted position; launches {counts}")
+    rows = seeding_dev.expand_rows(flat.sa_lo, flat.sa_count)
+    check_locate("shard", dfm, rows, lat["HBM"], "HBM", smi)
+    del dfm
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"[shard] the default-shard phase took {secs:.1f} s")
+    return secs
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    lat = load_latency(dev, smi)
     toy = make_toy(dev)
+    phase_index(dev, toy)
     timing = kernels_dp(dev, smi)
-    timing.update(kernels_seeding(dev, smi, toy))
+    timing.update(kernels_seeding(dev, smi, toy, lat))
     phase_golden(dev)
     launches = {"dp_fwd": phase_step(dev)}
     phase_slice(dev, smi, toy)
-    large = phase_large(dev, smi)
+    del toy
+    large = phase_large(dev, smi, lat)
     phase_pipeline_cascade(dev)
     phase_pipeline_world(dev, smi)
     counts = phase_pipeline_large(dev, smi, large)
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
     phase_cli(dev, smi, large)
+    del large
+    shard_s = phase_shard(dev, smi, lat)
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
+          f"(the default-shard phase {shard_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

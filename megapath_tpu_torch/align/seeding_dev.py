@@ -33,8 +33,9 @@ import torch
 from megapath_tpu_torch.align.params import MmpParams
 from megapath_tpu_torch.index.fm import OCC_BLOCK, WORD_CHARS, FMIndex
 
-ROW_WORDS = 16  # occ row: 4 checkpoints | 8 packed BWT words | 4 pad
+ROW_WORDS = 16  # occ row: 4 checkpoints | 8 packed BWT words | 4 mark words
 WORDS_PER_BLOCK = OCC_BLOCK // WORD_CHARS
+MARK_WORD = 4 + WORDS_PER_BLOCK  # the first of a row's 4 mark-bit words
 U32 = 0xFFFFFFFF
 
 
@@ -49,16 +50,31 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & U32
 
 
+def _pack_bits(bits: np.ndarray, n_words: int) -> np.ndarray:
+    """bool [m] -> uint32 [n_words]: bit t of word q is bits[32 q + t]
+    (zeros past m)."""
+    packed = np.zeros(4 * n_words, np.uint8)
+    b = np.packbits(bits, bitorder="little")
+    packed[: len(b)] = b
+    return packed.view("<u4").astype(np.uint32)
+
+
 @dataclass
 class DeviceFM:
     """One shard's FM tables on one torch device (int32 coordinates).
 
     ``rows``: one 64-byte row per 128-char BWT block, row b = the occ
     checkpoint at 128*b (4 counts) || the block's 8 packed BWT words ||
-    4 pad words; so a rank query, or an LF step, is one row fetch.
-    ``mark_rows``: one (bitmap word, rank checkpoint) pair per 32 BWT
-    rows, as ``pack_mark_rank`` in the reference. The k-mer table stays
-    the host's ``lut_lo``/``lut_hi`` (big-endian key)."""
+    the block's 128 mark bits (4 words); so a rank query, or an LF step
+    with its mark test, is one row fetch. Mark bit j of row b is
+    marked(r) for the full row r whose sentinel-free coordinate
+    ``adj = r - (r > primary)`` is 128*b + j, the coordinate the LF step
+    ranks in; row ``primary`` shares its adj with ``primary + 1`` (whose
+    bit it is) and always holds text position 0, so it is marked.
+    ``mark_rows``: one (bitmap word, rank checkpoint) pair per 32 full
+    rows, as ``pack_mark_rank`` in the reference, for the rank at a mark.
+    The k-mer table stays the host's ``lut_lo``/``lut_hi`` (big-endian
+    key)."""
 
     n: int
     primary: int
@@ -73,14 +89,20 @@ class DeviceFM:
 
     @classmethod
     def from_host(cls, fm: FMIndex, device: torch.device) -> "DeviceFM":
+        """The tables of ``fm``, packed on the host and copied to
+        ``device``."""
         n = int(fm.n)
         if n >= 2**31 - 1:
             raise ValueError(f"device seeding needs a shard < 2^31 - 1 chars (got {n})")
+        primary = int(fm.primary)
+        marked = marked_rows(fm.mark_rank, n)
         nb = fm.occ.shape[0]  # n_blocks + 1 checkpoints
         rows = np.zeros((nb, ROW_WORDS), np.uint32)
         rows[:, :4] = fm.occ
         words = np.asarray(fm.bwt_words, np.uint32).reshape(-1, WORDS_PER_BLOCK)
-        rows[: len(words), 4 : 4 + WORDS_PER_BLOCK] = words
+        rows[: len(words), 4:MARK_WORD] = words
+        rows[: nb - 1, MARK_WORD:] = _pack_bits(
+            np.delete(marked, primary), 4 * (nb - 1)).reshape(nb - 1, 4)
         dev = torch.device(device)
         lut_lo = lut_hi = None
         if fm.lut_k:
@@ -88,33 +110,33 @@ class DeviceFM:
             lut_hi = _as_i32(fm.lut_hi).to(dev)
         return cls(
             n=n,
-            primary=int(fm.primary),
+            primary=primary,
             lut_k=int(fm.lut_k),
             sa_interval=int(fm.sa_interval),
             rows=_as_i32(rows).to(dev),
             counts=torch.from_numpy(np.asarray(fm.counts, np.int32)).to(dev),
             lut_lo=lut_lo,
             lut_hi=lut_hi,
-            mark_rows=pack_mark_rows(
-                torch.from_numpy(np.asarray(fm.mark_rank, np.int64)).to(dev), n
-            ),
+            mark_rows=torch.from_numpy(pack_mark_rows(fm.mark_rank, marked)).to(dev),
             sa_sampled=torch.from_numpy(np.asarray(fm.sa_sampled, np.int32)).to(dev),
         )
 
 
-def pack_mark_rows(mark_rank: torch.Tensor, n: int) -> torch.Tensor:
-    """Prefix rank of marked rows [n + 2] -> int32 [ceil((n+1)/32), 2]:
-    (bitmap word of rows 32q..32q+31, marks below row 32q), as
-    ``seeding_jax.pack_mark_rank`` packs them."""
-    marked = mark_rank[1 : n + 2] != mark_rank[: n + 1]  # marked(r), r in [0, n]
-    nw = (n + 1 + 31) // 32
-    bits = torch.zeros(nw * 32, dtype=torch.int64, device=mark_rank.device)
-    bits[: n + 1] = marked.to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=mark_rank.device)
-    words = (bits.view(nw, 32) << shifts).sum(dim=1)
-    words = torch.where(words >= 2**31, words - 2**32, words)  # uint32 bits
-    chk = mark_rank[0 : nw * 32 : 32]
-    return torch.stack([words, chk], dim=1).to(torch.int32).contiguous()
+def marked_rows(mark_rank: np.ndarray, n: int) -> np.ndarray:
+    """marked(r) for the full rows r in [0, n], from the prefix rank of
+    marked rows [n + 2] (bool [n + 1])."""
+    return np.not_equal(mark_rank[1 : n + 2], mark_rank[: n + 1])
+
+
+def pack_mark_rows(mark_rank: np.ndarray, marked: np.ndarray) -> np.ndarray:
+    """Prefix rank of marked rows [n + 2] and ``marked_rows`` [n + 1] ->
+    int32 [ceil((n+1)/32), 2]: (bitmap word of rows 32q..32q+31, marks
+    below row 32q), as ``seeding_jax.pack_mark_rank`` packs them."""
+    nw = (len(marked) + 31) // 32
+    out = np.empty((nw, 2), np.uint32)
+    out[:, 0] = _pack_bits(marked, nw)
+    out[:, 1] = mark_rank[0 : nw * 32 : 32]
+    return out.view(np.int32)
 
 
 class DeviceSeeds(NamedTuple):
@@ -410,10 +432,16 @@ def locate_device_plain(
 ) -> torch.Tensor:
     """Text positions (int32) of full-BWT rows by LF walk to a sampled
     row, at most sa_interval + 1 steps, in plain torch
-    (``seeding_jax.device_locate``); -1 where no mark was reached. A
-    ``stats`` dict receives the counts of mark lookups and LF steps
-    taken, and what the walk reads, each table row once: the distinct
-    mark rows (``mark_rows``) and occ rows (``occ_rows``)."""
+    (``seeding_jax.device_locate``); -1 where no mark was reached. It reads
+    the marks from ``mark_rows`` at every step, as the reference does, and
+    not from the occ rows' mark words. A ``stats`` dict receives the
+    counts of mark lookups and LF steps taken, the most LF steps a row
+    took (``longest``), and what the walk needs to read, each table entry
+    once: the distinct blocks whose mark bits a row other than ``primary``
+    is tested in (``mark_words``, 16 bytes), the distinct blocks an LF
+    step ranks in (``occ_rows``, 48 bytes: checkpoints and BWT words) and
+    the distinct mark rows at the marks reached (``mark_rows``, 8 bytes:
+    the rank there)."""
     i64 = torch.int64
     r = rows.to(i64)
     rows_u = _u32(dfm.rows)
@@ -426,20 +454,23 @@ def locate_device_plain(
     if stats is not None:
         seen_marks = torch.zeros(marks.shape[0], dtype=torch.bool, device=r.device)
         seen_rows = torch.zeros(rows_u.shape[0], dtype=torch.bool, device=r.device)
+        seen_words = torch.zeros(rows_u.shape[0], dtype=torch.bool, device=r.device)
     for _ in range(dfm.sa_interval + 1):
+        adj = r - (r > dfm.primary).to(i64)
         if stats is not None:
             n_marks += int((pos < 0).sum())
-            seen_marks[(r >> 5)[pos < 0]] = True
+            seen_words[(adj >> 7)[(pos < 0) & (r != dfm.primary)]] = True
         mk = marks[r >> 5]
         bit = r & 31
         hit = (pos < 0) & (((mk[:, 0] >> bit) & 1) == 1)
+        if stats is not None:
+            seen_marks[(r >> 5)[hit]] = True
         rank = mk[:, 1] + _popcount(mk[:, 0] & _low_bits(bit))
         rank = rank.clamp(0, max(len(sampled) - 1, 0))
         if len(sampled):
             pos = torch.where(hit, sampled[rank] + steps, pos)
         todo = pos < 0
         # LF step: the row's BWT char and its rank from one occ row
-        adj = r - (r > dfm.primary).to(i64)
         blk = rows_u[adj >> 7]
         rel = adj & (OCC_BLOCK - 1)
         w = torch.gather(blk, 1, (4 + (rel >> 4))[:, None])[:, 0]
@@ -453,7 +484,9 @@ def locate_device_plain(
         steps = steps + todo.to(i64)
     if stats is not None:
         stats.update(mark_lookups=n_marks, lf_steps=n_lf,
-                     mark_rows=int(seen_marks.sum()), occ_rows=int(seen_rows.sum()))
+                     longest=int(steps.max()) if len(steps) else 0,
+                     mark_rows=int(seen_marks.sum()), occ_rows=int(seen_rows.sum()),
+                     mark_words=int(seen_words.sum()))
     return pos.to(torch.int32)
 
 

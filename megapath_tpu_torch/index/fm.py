@@ -16,6 +16,7 @@ BWT matrix (row 0 = sentinel suffix). ``count = hi - lo``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from megapath_tpu_torch.index.pack import save_npz
-from megapath_tpu_torch.index.suffix import bwt_from_sa_t, suffix_array_t
+from megapath_tpu_torch.index import suffix
 
 OCC_BLOCK = 128  # bwt symbols per occ checkpoint
 WORD_CHARS = 16  # 2-bit chars per uint32 word
@@ -170,88 +171,123 @@ def build_fm_index(
     lut_k: int = LOOKUP_K,
     *,
     device: torch.device,
+    stages: Optional[dict] = None,
 ) -> FMIndex:
     """Build the FM-index of a packed reference text on ``device``: the
     suffix array, the BWT, the occ checkpoints, the sampled SA and the
     k-mer table are all computed there (a 512 Mbp shard builds in
-    seconds on a card); the arrays returned are numpy."""
+    seconds on a card); the arrays returned are numpy. On the device the
+    build holds the text, the int32 suffix array and the BWT; every pass
+    over them runs in chunks (``suffix.chunks``), and ``mark_rank`` (int64,
+    8 bytes a character) is written to the host chunk by chunk. A
+    ``stages`` dict receives each stage's seconds and card peak
+    (``suffix.stage``)."""
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n = len(codes)
     dev = torch.device(device)
     text = torch.from_numpy(codes).to(dev)
-    sa = suffix_array_t(text)
-    bwt, primary = bwt_from_sa_t(text, sa)
+    sa = suffix.suffix_array_t(text, stages)
+    t0 = time.perf_counter()
+    bwt, primary = suffix.bwt_from_sa_t(text, sa)
 
-    # counts: C[c] = 1 + #chars < c (sentinel occupies row 0)
+    # occ checkpoints over the sentinel-free bwt, block by block; pad
+    # cells (code 4) count as no char
+    n_blocks = (n + OCC_BLOCK - 1) // OCC_BLOCK
+    occ = torch.zeros((n_blocks + 1, 4), dtype=torch.int64, device=dev)
+    words = np.empty(n_blocks * (OCC_BLOCK // WORD_CHARS), np.uint32)
+    shifts = 2 * torch.arange(WORD_CHARS, dtype=torch.int64, device=dev)
+    step = max(1, suffix.CHUNK // OCC_BLOCK)
+    for a in range(0, n_blocks, step):
+        b = min(n_blocks, a + step)
+        blocks = torch.zeros((b - a) * OCC_BLOCK, dtype=torch.uint8, device=dev)
+        part = bwt[a * OCC_BLOCK : b * OCC_BLOCK]
+        blocks[: len(part)] = part
+        # the packed words hold A past the text, as the reference's
+        w = (blocks.view(-1, WORD_CHARS).to(torch.int64) << shifts).sum(dim=1)
+        words[a * 8 : b * 8] = w.cpu().numpy()
+        blocks[len(part) :] = 4
+        blocks = blocks.view(-1, OCC_BLOCK)
+        for c in range(4):
+            occ[a + 1 : b + 1, c] = (blocks == c).sum(dim=1)
+    occ = occ.cumsum_(0).cpu().numpy()
+    del bwt, blocks, w
+    # counts: C[c] = 1 + #chars < c (sentinel occupies row 0); the last
+    # checkpoint counts every char of the text
     counts = np.zeros(5, dtype=np.int64)
-    counts[1:] = np.cumsum(np.bincount(codes, minlength=4))
+    counts[1:] = np.cumsum(occ[-1])
     counts += 1
 
-    # occ checkpoints over the sentinel-free bwt; pad cells (code 4)
-    # count as no char
-    n_blocks = (n + OCC_BLOCK - 1) // OCC_BLOCK
-    pad = n_blocks * OCC_BLOCK
-    padded = torch.full((pad,), 4, dtype=torch.uint8, device=dev)
-    padded[:n] = bwt
-    blocks = padded.view(n_blocks, OCC_BLOCK)
-    occ = torch.zeros((n_blocks + 1, 4), dtype=torch.int64, device=dev)
-    for c in range(4):
-        occ[1:, c] = torch.cumsum((blocks == c).sum(dim=1), 0)
-    padded[n:] = 0  # the packed words hold A past the text, as the reference's
-    shifts = 2 * torch.arange(WORD_CHARS, dtype=torch.int64, device=dev)
-    words = (padded.view(-1, WORD_CHARS).to(torch.int64) << shifts).sum(dim=1)
-    del padded, blocks
-
     # sampled SA: mark full rows whose text position % sa_interval == 0;
-    # full row r>0 holds position sa[r-1], row 0 (sentinel) is never marked
-    full_pos = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    full_pos[0] = n
-    full_pos[1:] = sa
-    marked = (full_pos % sa_interval) == 0
-    marked[0] = False
-    mark_rank = torch.zeros(n + 2, dtype=torch.int64, device=dev)
-    mark_rank[1:] = torch.cumsum(marked, 0)
+    # full row r>0 holds position sa[r-1], row 0 (sentinel, position n) is
+    # never marked: mark_rank[r + 1] = #marked rows <= r
+    mark_rank = np.zeros(n + 2, np.int64)
+    host_rank = torch.from_numpy(mark_rank)
+    sampled = []
+    carry = 0
+    for a, b in suffix.chunks(n):
+        marked = (sa[a:b] % sa_interval) == 0
+        part = torch.cumsum(marked, 0)
+        part += carry
+        host_rank[a + 2 : b + 2].copy_(part)
+        carry = int(part[-1])
+        sampled.append(sa[a:b][marked].cpu())
+    del marked, part
+    t0 = suffix.stage(stages, "tables", t0, dev)
 
     fm = FMIndex(
         n=n,
         primary=primary,
-        bwt_words=words.cpu().numpy().astype(np.uint32),
-        occ=occ.cpu().numpy().astype(np.uint32),
+        bwt_words=words,
+        occ=occ.astype(np.uint32),
         counts=counts,
-        sa_sampled=full_pos[marked].cpu().numpy(),
-        mark_rank=mark_rank.cpu().numpy(),
+        sa_sampled=torch.cat(sampled).numpy().astype(np.int64),
+        mark_rank=mark_rank,
         sa_interval=sa_interval,
     )
-    del full_pos, marked, mark_rank
+    del sampled
     if lut_k:
-        fm.lut_lo, fm.lut_hi = _build_lut(text, sa, lut_k)
+        fm.lut_lo, fm.lut_hi = _build_lut(text, codes, sa, lut_k)
         fm.lut_k = lut_k
+        suffix.stage(stages, "k-mer table", t0, dev)
     return fm
 
 
-def _build_lut(text: torch.Tensor, sa: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
+def _build_lut(
+    text: torch.Tensor, codes: np.ndarray, sa: torch.Tensor, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
     """k-mer -> full-row interval [lo, hi), replacing 2bwt-flex LT.
 
-    Keys are computed per suffix from its first k chars (A-padded);
-    suffixes shorter than k (at most k-1 of them) are then excised from
-    their padded bucket since they cannot contain a full k-mer.
+    Keys are computed per suffix from its first k chars (A-padded), in
+    chunks of suffix rows; suffixes shorter than k (at most k-1 of them)
+    are then excised from their padded bucket since they cannot contain a
+    full k-mer.
     """
     n = len(text)
-    # key[r] for suffix sa[r]: base-4 big-endian of codes[sa[r] : sa[r]+k]
-    key = torch.zeros(n, dtype=torch.int64, device=text.device)
-    for j in range(k):
-        idx = sa + j
-        ch = text[idx.clamp_max(n - 1)].to(torch.int64)
-        key = key * 4 + torch.where(idx < n, ch, 0)
+    dev = text.device
+    hist = torch.zeros(4**k, dtype=torch.int64, device=dev)
+    for a, b in suffix.chunks(n):
+        # key of suffix sa[r]: base-4 big-endian of codes[sa[r] : sa[r]+k]
+        pos = sa[a:b].long()
+        key = torch.zeros(b - a, dtype=torch.int64, device=dev)
+        for j in range(k):
+            ch = text[(pos + j).clamp_max(n - 1)].to(torch.int64)
+            key = key * 4 + torch.where(pos + j < n, ch, 0)
+        hist += torch.bincount(key, minlength=4**k)
+    del pos, key, ch
     # bucket boundaries among the n suffix rows (full rows 1..n)
     starts = np.zeros(4**k + 1, dtype=np.int64)
-    starts[1:] = np.cumsum(torch.bincount(key, minlength=4**k).cpu().numpy())
+    starts[1:] = np.cumsum(hist.cpu().numpy())
     lo = starts[:-1] + 1  # +1: full rows are suffix rows shifted by sentinel
     hi = starts[1:] + 1
     # excise short suffixes (positions n-1 .. n-k+1) from their buckets
-    for p in range(max(0, n - k + 1), n):
-        r = int(torch.nonzero(sa == p)[0, 0])  # suffix row; full row = r+1
-        b = int(key[r])
+    first = max(0, n - k + 1)
+    short = torch.nonzero(sa >= first)[:, 0]
+    row_of = dict(zip(sa[short].tolist(), short.tolist()))
+    for p in range(first, n):
+        r = row_of[p]  # suffix row; full row = r+1
+        b = 0
+        for j in range(k):
+            b = b * 4 + (int(codes[p + j]) if p + j < n else 0)
         # short suffixes sort before all full-length members (A-pad
         # ties break by the implicit sentinel); bump lo past them
         if lo[b] <= r + 1 < hi[b]:

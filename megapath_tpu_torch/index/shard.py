@@ -14,12 +14,14 @@ so the shard cap is 2.0 Gbp, roughly half the reference's 3.9 Gbp, i.e.
 at half the device footprint and bandwidth of an int64 layout. A shard
 of 2^31 characters or more fails loudly in ``index/suffix.py``.
 
-**The card's own limit:** the build on a card holds its prefix-doubling
-sort and the tables' int64 arrays on the card at once
-(``BUILD_BYTES_PER_CHAR`` at its peak), so a card holds a smaller shard
-than the 2.0 Gbp cap: ``build_shard_indexes`` refuses a shard it cannot
-hold before it allocates anything there, and names ``--device cpu``,
-which builds it in host memory.
+**The card's own limit:** the build on a card peaks while it sorts: two
+int64 key buffers, two int32 position buffers and the text
+(``index/suffix.py``), ``BUILD_BYTES_PER_CHAR`` in all, so an 80 GB card
+builds the 2.0 Gbp default shard. Whatever the card's memory, a shard
+stays below ``MAX_SHARD_BP`` (~2.1 Gbp), which int32 coordinates set.
+``build_shard_indexes`` refuses a shard the card cannot hold before it
+allocates anything there, and names ``--device cpu``, which builds it in
+host memory.
 """
 
 from __future__ import annotations
@@ -37,28 +39,34 @@ from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, write_fastq
 DEFAULT_SHARD_BP = int(2.0e9)
 
 # card bytes a text character costs at the build's peak, rounded up:
-# torch.cuda.max_memory_allocated over build_fm_index of the 512 Mbp shard
-# is 61.12 bytes a character (chip_smoke.py phase 11, NVIDIA H100 80GB
-# HBM3), so an 80 GB card holds shards up to ~1.37 Gbp, below the 2.0 Gbp
-# default
-BUILD_BYTES_PER_CHAR = 62
+# torch.cuda.max_memory_allocated over build_fm_index of the 2.0 Gbp
+# default shard is 25.27 bytes a character, in its sort rounds
+# (chip_smoke.py, the default-shard phase, NVIDIA H100 80GB HBM3), so an
+# 80 GB card's memory would admit ~3.27 Gbp, past the 2.0 Gbp default
+BUILD_BYTES_PER_CHAR = 26
+# the largest shard int32 coordinates take: full BWT rows 0..n and the
+# sentinel-free n + 1 must stay below 2^31 - 1 (seeding_dev.DeviceFM)
+MAX_SHARD_BP = 2**31 - 2
 
 
 def check_shard_fits(n_bp: int, device: torch.device) -> None:
     """Raise before anything is allocated when a shard of ``n_bp``
     characters cannot be built on ``device``: on a card the limit is its
-    memory over ``BUILD_BYTES_PER_CHAR``; the CPU takes any shard."""
+    memory over ``BUILD_BYTES_PER_CHAR``, at most ``MAX_SHARD_BP``; the CPU
+    takes any shard."""
     device = torch.device(device)
     if device.type != "cuda":
         return
-    limit = torch.cuda.get_device_properties(device).total_memory // BUILD_BYTES_PER_CHAR
+    memory = torch.cuda.get_device_properties(device).total_memory
+    limit = min(memory // BUILD_BYTES_PER_CHAR, MAX_SHARD_BP)
     if n_bp > limit:
         raise ValueError(
             f"a shard of {n_bp} bp does not fit the index build on "
             f"{torch.cuda.get_device_name(device)}: the build takes "
-            f"{BUILD_BYTES_PER_CHAR} bytes a character at its peak, so this "
-            f"card holds shards up to {limit} bp; pass --shard-bp {limit} or "
-            f"smaller, or build the index on the host with --device cpu"
+            f"{BUILD_BYTES_PER_CHAR} bytes a character at its peak and int32 "
+            f"coordinates stop at {MAX_SHARD_BP} bp, so this card holds shards "
+            f"up to {limit} bp; pass --shard-bp {limit} or smaller, or build "
+            f"the index on the host with --device cpu"
         )
 
 

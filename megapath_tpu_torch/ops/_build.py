@@ -101,19 +101,28 @@ def build(force: bool = False) -> float:
     return time.perf_counter() - t0
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare every entry point's argument and result types on ``lib``."""
+def _signatures() -> dict:
+    """Every entry point's (argument types, result type)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mp_dp_full.argtypes = [vp] * 9 + [ci] * 7 + [vp]
-    lib.mp_dp_full.restype = ci
-    lib.mp_dp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-    lib.mp_dp_fwd.restype = ci
-    lib.mp_dp_full_max_width.argtypes = []
-    lib.mp_dp_full_max_width.restype = ci
-    lib.mp_mmp_seed.argtypes = [vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp]
-    lib.mp_mmp_seed.restype = ci
-    lib.mp_locate.argtypes = [vp] * 6 + [ci] * 3 + [vp]
-    lib.mp_locate.restype = ci
+    return {
+        "mp_dp_full": ([vp] * 9 + [ci] * 7 + [vp], ci),
+        "mp_dp_fwd": ([vp] * 7 + [ci] * 7 + [vp], ci),
+        "mp_dp_full_max_width": ([], ci),
+        "mp_mmp_seed": ([vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp], ci),
+        "mp_locate": ([vp] * 6 + [ci] * 3 + [vp], ci),
+        "mp_sort_pairs_temp_bytes": ([ci, ci, ctypes.POINTER(ctypes.c_size_t)], ci),
+        "mp_sort_pairs": ([vp, ctypes.c_size_t] + [vp] * 4 + [ci, ci,
+                          ctypes.POINTER(ctypes.c_int), vp], ci),
+    }
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Declare the argument and result types of ``names`` (default: every
+    entry point) on ``lib``."""
+    sigs = _signatures()
+    for name in names or sigs:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = sigs[name]
     return lib
 
 

@@ -37,6 +37,9 @@ def _check_tables(dfm: DeviceFM, dev: torch.device) -> None:
     check_tensor("sa_sampled", dfm.sa_sampled, torch.int32, 1, dev)
     if dfm.rows.shape[1] != 16 or dfm.mark_rows.shape[1] != 2 or dfm.counts.shape[0] != 5:
         raise ValueError("DeviceFM tables are not in the kernels' layout")
+    # the kernels read a row as four uint4s and a mark row as one uint2
+    if dfm.rows.data_ptr() % 16 or dfm.mark_rows.data_ptr() % 8:
+        raise ValueError("DeviceFM rows must be 16-byte and mark rows 8-byte aligned")
     if dfm.lut_k:
         check_tensor("lut_lo", dfm.lut_lo, torch.int32, 1, dev)
         check_tensor("lut_hi", dfm.lut_hi, torch.int32, 1, dev)
@@ -100,7 +103,8 @@ def mmp_seed_cuda(
 
 def locate_cuda(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
     """Text positions (int32) of full-BWT rows (int32, each in [0, n]) on
-    the card; -1 where no mark lies within sa_interval + 1 steps."""
+    the card; -1 where no mark lies within sa_interval + 1 steps. The
+    kernel reads each step's mark from the occ row's mark words."""
     global locate_launches
     dev = rows.device
     if dev.type != "cuda":

@@ -293,6 +293,25 @@ def test_cuda_device_without_a_card_raises(tmp_path, monkeypatch, cmd):
     assert not list(tmp_path.glob("*.npz"))
 
 
+def test_an_80_gb_card_admits_the_default_shard(monkeypatch):
+    """The card's build fits the 2.0 Gbp default shard on an 80 GB card
+    (the JAX package builds it on the host); there int32 coordinates, not
+    the card's memory, set the limit, and a shard one character over it
+    is still refused."""
+    total = 80 * 10**9
+    props = types.SimpleNamespace(total_memory=total)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: props)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "an 80 GB card")
+    assert shard.BUILD_BYTES_PER_CHAR <= 36
+    shard.check_shard_fits(shard.DEFAULT_SHARD_BP, torch.device("cuda"))
+    limit = shard.MAX_SHARD_BP
+    assert shard.DEFAULT_SHARD_BP <= limit < total // shard.BUILD_BYTES_PER_CHAR
+    assert limit == 2**31 - 2
+    shard.check_shard_fits(limit, torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"up to {limit} bp.*--device cpu"):
+        shard.check_shard_fits(limit + 1, torch.device("cuda"))
+
+
 def test_build_index_refuses_a_shard_the_card_cannot_hold(tmp_path, monkeypatch):
     """On a card, a shard longer than its memory over
     BUILD_BYTES_PER_CHAR is refused before anything is built, naming the

@@ -42,6 +42,8 @@ import megapath_tpu_torch.index.fm
 import megapath_tpu_torch.io.fastq
 import megapath_tpu_torch.ops.dp_cuda
 import megapath_tpu_torch.ops.seed_cuda
+import megapath_tpu_torch.ops.sort_cuda
+import megapath_tpu_torch.index.suffix
 import megapath_tpu_torch.classify.reassign
 import megapath_tpu_torch.filters.bbduk
 import megapath_tpu_torch.filters.spike
@@ -117,6 +119,19 @@ def test_seed_kernel_entries_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         seed_cuda.locate_cuda(dfm, torch.ones(3, dtype=torch.int32))
     assert (seed_cuda.walk_launches, seed_cuda.locate_launches) == before
+
+
+def test_seed_tables_must_be_aligned_for_the_kernels():
+    """The kernels read an occ row as four uint4s and a mark row as one
+    uint2: a misaligned table is refused before a launch."""
+    import dataclasses
+
+    dfm = _cpu_tables()
+    flat = torch.zeros(dfm.rows.numel() + 1, dtype=torch.int32)
+    odd = dataclasses.replace(dfm, rows=flat[1:].view(dfm.rows.shape))
+    with pytest.raises(ValueError, match="16-byte"):
+        seed_cuda._check_tables(odd, torch.device("cpu"))
+    seed_cuda._check_tables(dfm, torch.device("cpu"))
 
 
 def test_engine_on_cuda_refuses_without_cuda():

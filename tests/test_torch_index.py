@@ -36,13 +36,18 @@ def _text(kind: str, n: int) -> np.ndarray:
         t = np.resize(rng.integers(0, 4, 7).astype(np.uint8), n)
         t[rng.integers(0, n, max(1, n // 50))] = 3
         return t
+    if kind == "long_repeat":  # a 997-char unit, 3 substitutions: ~10 rounds
+        t = np.resize(rng.integers(0, 4, 997).astype(np.uint8), n)
+        q = rng.integers(0, n, 3)
+        t[q] = (t[q] + 1) % 4
+        return t
     raise ValueError(kind)
 
 
 @pytest.mark.parametrize(
     "kind,n",
     [("random", 1), ("random", 2), ("random", 17), ("random", 5000),
-     ("homopolymer", 300), ("repeat", 4000)],
+     ("homopolymer", 300), ("repeat", 4000), ("long_repeat", 20000)],
 )
 def test_suffix_array_equals_reference(kind, n):
     codes = _text(kind, n)
@@ -89,6 +94,44 @@ def test_fm_index_equals_reference(source, sa_interval, lut_k):
     c = rng.integers(0, 4, 500)
     for g, w in zip(got.extend_backward(lo, hi, c), want.extend_backward(lo, hi, c)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("chunk", [7, 384])
+@pytest.mark.parametrize("kind,n", [("random", 5000), ("long_repeat", 20000)])
+def test_chunked_build_equals_reference(monkeypatch, chunk, kind, n):
+    """Every chunked pass of the build (the rank prefix sums and
+    scatters, the BWT gather, the occ and word blocks, mark_rank and the
+    sampled SA, the k-mer histogram) across many chunk boundaries: the
+    index equals the reference's key by key."""
+    monkeypatch.setattr(tsuffix, "CHUNK", chunk)
+    codes = _text(kind, n)
+    want = jfm.build_fm_index(codes, sa_interval=4, lut_k=5)
+    stages = {}
+    got = tfm.build_fm_index(codes, sa_interval=4, lut_k=5, device=CPU, stages=stages)
+    _fm_equal(got, want)
+    rounds = [k for k in stages if k.startswith("sort round")]
+    assert rounds and list(stages)[len(rounds):] == ["tables", "k-mer table"]
+    # a CPU build records seconds and no card peak
+    assert all(sec >= 0 and peak is None for sec, peak in stages.values())
+    if kind == "long_repeat":  # shared prefixes of ~10 kbp: 13 * 2^10 chars
+        assert len(rounds) >= 10
+
+
+def test_sort_pairs_is_torch_sort_on_the_cpu_and_refuses_other_devices():
+    """The CPU takes torch.sort into the double buffers; the CUDA sort's
+    wrapper refuses CPU tensors rather than sorting them some other way."""
+    from megapath_tpu_torch.ops import sort_cuda
+
+    keys = [torch.tensor([5, 1, 4, 1, 0], dtype=torch.int64), torch.empty(5, dtype=torch.int64)]
+    vals = [torch.arange(5, dtype=torch.int32), torch.empty(5, dtype=torch.int32)]
+    s = tsuffix._sort_pairs(keys, vals, 0, 3)
+    assert keys[s].tolist() == [0, 1, 1, 4, 5]
+    assert sorted(vals[s].tolist()[1:3]) == [1, 3] and vals[s][0] == 4
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sort_cuda.sort_pairs_cuda(keys, vals, 0, 3)
+    meta = [k.to("meta") for k in keys]
+    with pytest.raises(ValueError, match="no pair sort"):
+        tsuffix._sort_pairs(meta, [v.to("meta") for v in vals], 0, 3)
 
 
 @pytest.mark.parametrize(

@@ -297,7 +297,14 @@ def test_locate_stats_count_lookups_and_steps(walk):
     M = len(rows)
     assert M <= stats["mark_lookups"] <= M * (dfm.sa_interval + 1)
     assert stats["lf_steps"] == stats["mark_lookups"] - int((pos >= 0).sum())
-    assert 0 < stats["mark_rows"] <= min(stats["mark_lookups"], dfm.mark_rows.shape[0])
-    assert 0 < stats["occ_rows"] <= min(stats["lf_steps"], dfm.rows.shape[0])
-    assert cs.locate_bytes(M, stats) == (M * 12 + stats["mark_rows"] * 8
-                                         + stats["occ_rows"] * 48)
+    assert 0 < stats["longest"] <= dfm.sa_interval + 1
+    # a mark row is needed only at a mark, a block's mark words at every
+    # row tested, its checkpoints and BWT words only where an LF step ranks
+    assert 0 < stats["mark_rows"] <= min(int((pos >= 0).sum()), dfm.mark_rows.shape[0])
+    assert 0 < stats["mark_words"] <= min(stats["mark_lookups"], dfm.rows.shape[0])
+    assert 0 < stats["occ_rows"] <= min(stats["lf_steps"], stats["mark_words"])
+    assert cs.locate_bytes(M, stats) == (M * 12 + stats["mark_words"] * 16
+                                         + stats["occ_rows"] * 48 + stats["mark_rows"] * 8)
+    loads, floor_ms = cs.chain_floor(stats, 100.0)
+    assert loads == stats["longest"] + 4
+    assert floor_ms == pytest.approx(loads * 1e-4, rel=1e-12)

@@ -234,3 +234,126 @@ def test_cpu_path_launches_nothing(world):
         align_params_from_reference(PARAMS), 4, 184, 184,
     )
     assert (seed_cuda.walk_launches, seed_cuda.locate_launches) == before
+
+
+# ----------------------------------------------------------------------
+# the occ rows' mark words, and the locate kernel's step on them
+# ----------------------------------------------------------------------
+def _layout_text(kind: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    if kind == "homopolymer":
+        return np.full(n, 2, np.uint8)
+    t = np.resize(rng.integers(0, 4, 7).astype(np.uint8), n)  # 7-mer repeat
+    t[rng.integers(0, n, max(1, n // 50))] = 3
+    return t
+
+
+@pytest.fixture(scope="module")
+def layouts(world):
+    """(reference FM, port DeviceFM) on the world (sa_interval 4) and on
+    a repeat and a homopolymer text at sa_intervals 1, 3 and 8."""
+    out = {"world": world[1][6]}
+    for kind, n in (("repeat", 4000), ("homopolymer", 300)):
+        for s in (1, 3, 8):
+            fm = build_fm_index(_layout_text(kind, n), sa_interval=s, lut_k=4)
+            out[f"{kind} s={s}"] = (fm, sd.DeviceFM.from_host(_port_fm(fm), CPU))
+    return out
+
+
+LAYOUTS = ["world"] + [f"{k} s={s}" for k in ("repeat", "homopolymer") for s in (1, 3, 8)]
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_mark_words_hold_marked_rows_by_adj(layouts, name):
+    """Bit adj & 127 of row adj >> 7's mark words is marked(r) for every
+    full row r != primary, adj = r - (r > primary); primary itself holds
+    text position 0 and is marked."""
+    fm, dfm = layouts[name]
+    n, primary = fm.n, fm.primary
+    marked = (fm.mark_rank[1:] - fm.mark_rank[:-1]) > 0  # full rows 0..n
+    words = dfm.rows[:, sd.MARK_WORD:].numpy().view(np.uint32)
+    r = np.arange(n + 1)
+    adj = r - (r > primary)
+    bits = (words[adj >> 7, (adj & 127) >> 5] >> (adj & 31).astype(np.uint32)) & 1
+    other = r != primary
+    np.testing.assert_array_equal(bits[other].astype(bool), marked[other])
+    assert marked[primary] and fm.sa_sampled[fm.mark_rank[primary]] == 0
+    # past the text, and in the last checkpoint row, no bit is set
+    tail = np.unpackbits(words.view(np.uint8), bitorder="little")[n:]
+    assert not tail.any()
+
+
+def _count_in_words(words: torch.Tensor, pat: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """locate.cu's ``count_in_words``: chars equal to the pattern's among
+    the first max(s, 0) / 2 chars of 4 words (int64 uint32 values [M, 4])."""
+    x = ~(words ^ pat[:, None]) & sd.U32
+    k = (s[:, None] - 32 * torch.arange(4)[None, :]).clamp(0, 32)  # the funnel shift
+    return sd._popcount(x & (x >> 1) & 0x55555555 & sd._low_bits(k)).sum(dim=1)
+
+
+def _locate_kernel_step(dfm, rows: torch.Tensor) -> torch.Tensor:
+    """csrc/locate.cu in plain torch, lane by lane. A step reads one
+    64-byte occ row: lane 0 its checkpoint and BWT words 0-3, lane 1 words
+    4-7 and the mark bits. The mark bit is lane 1's (row ``primary`` is
+    decided by comparison), the char lane rel >> 6's, each lane counts the
+    char in its own 4 words and lane 0 adds C[c] and the checkpoint; only
+    at a mark does the row read its mark row for the rank, then
+    sa_sampled."""
+    i64 = torch.int64
+    rows_u = sd._u32(dfm.rows)
+    marks = sd._u32(dfm.mark_rows)
+    counts = dfm.counts.to(i64)
+    sampled = dfm.sa_sampled.to(i64)
+    r = rows.to(i64)
+    pos = torch.full_like(r, -1)
+    live = torch.ones_like(r, dtype=torch.bool)
+    pick = lambda v, q: torch.gather(v, 1, q[:, None])[:, 0]  # noqa: E731
+    for steps in range(dfm.sa_interval + 1):
+        adj = r - (r > dfm.primary).to(i64)
+        row = rows_u[adj >> 7]  # the step's one row fetch
+        occ, words, mk = row[:, :4], (row[:, 4:8], row[:, 8:12]), row[:, 12:]
+        rel = adj & 127
+        mine = [(pick(w, (rel >> 4) & 3) >> (2 * (rel & 15))) & 3 for w in words]
+        bit = (pick(mk, rel >> 5) >> (rel & 31)) & 1
+        hit = live & ((r == dfm.primary) | (bit == 1))
+        m = marks[(r >> 5)[hit]]  # at the mark only
+        rank = m[:, 1] + sd._popcount(m[:, 0] & sd._low_bits((r & 31)[hit]))
+        pos[hit] = sampled[rank] + steps
+        live = live & ~hit
+        c = torch.where((rel >> 6) == 1, mine[1], mine[0])
+        pat = c * 0x55555555
+        part0 = _count_in_words(words[0], pat, 2 * rel) + counts[c] + pick(occ, c)
+        part1 = _count_in_words(words[1], pat, 2 * rel - 128)
+        r = torch.where(live, part0 + part1, r)
+    return pos.to(torch.int32)
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_kernel_step_equals_plain_and_jax_locate(layouts, name):
+    """The kernel's step, emulated, on every full row: equal to
+    locate_device_plain and to the JAX device_locate."""
+    fm, dfm = layouts[name]
+    rows = np.arange(0, fm.n + 1, dtype=np.int32)
+    got = _locate_kernel_step(dfm, torch.from_numpy(rows))
+    plain = sd.locate_device_plain(dfm, torch.from_numpy(rows))
+    jw = np.asarray(js.device_locate(js.DeviceFM.from_host(fm), rows, fm.sa_interval))
+    np.testing.assert_array_equal(plain.numpy(), jw)
+    np.testing.assert_array_equal(got.numpy(), jw)
+    assert (got.numpy() >= 0).all()  # every row reaches a mark in sa_interval steps
+
+
+def test_walk_ignores_the_mark_words(world):
+    """mmp_seed_device_plain's seeds are the same with the mark words
+    cleared: the walk ranks from a row's first 12 words only."""
+    codes, worlds = world
+    fm, dfm = worlds[6]
+    cleared = dataclasses.replace(dfm, rows=dfm.rows.clone())
+    cleared.rows[:, sd.MARK_WORD:] = 0
+    assert bool(dfm.rows[:, sd.MARK_WORD:].ne(0).any())
+    n, L = 32, 90
+    reads, lens = _reads(codes, np.random.default_rng(31), n, L)
+    walkers, wlens = make_walkers_fast(reads, lens)
+    p = align_params_from_reference(DIALS["default"])
+    args = (torch.from_numpy(walkers), torch.from_numpy(wlens), p, 8, 334, 334)
+    _assert_seeds_equal(sd.mmp_seed_device_plain(dfm, *args),
+                        sd.mmp_seed_device_plain(cleared, *args))

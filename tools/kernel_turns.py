@@ -2,25 +2,31 @@
 """Time two builds of the port's kernel library in turns on one CUDA card.
 
     python3 tools/kernel_turns.py --old build/old [--large] [--probe]
+                                  [--locate-scan]
 
-``--old`` names a directory that holds another version's ``dp_full.cu``
-and ``mmp_seed.cu`` (for example a parent commit's, written there with
-``git show <commit>:megapath_tpu_torch/csrc/dp_full.cu``); ``locate.cu``
-comes from the checkout when the directory has none. They are compiled
-with the library's own nvcc flags into ``<old>/libold_kernels.so`` and
-loaded beside the checkout's library (each with its own ctypes handle, so
-the two sets of symbols never meet). Every case runs old, new, new, old,
-each a median of 10 CUDA-event timed launches through the port's
-wrappers (``chip_smoke._median_ms``: the card spins ahead of each one, so
-the events time the kernel and not the wrapper's host work), and both builds' outputs must equal the plain version's first.
-The cases are the main path's DP shapes, the walk on the toy workload's
-8,192 walkers (default and exact dials), the exact rescue's 1,024 walkers
-and, with ``--large``, the 512 Mbp shard's 40,960 walkers and its rescue
-shape. A walk's time is also given per iteration of its longest walker.
-``--probe`` measures the card's dependent-load latency (one thread
-chasing pointers through an 8 MB and a 4 GB random cycle): one walk
-iteration can take no less than one such round trip. Lines go to stdout and to
-``chiprun_out/kernel_turns.txt``.
+``--old`` names a directory that holds another version of any of
+``dp_full.cu``, ``mmp_seed.cu`` and ``locate.cu`` (for example a parent
+commit's, written there with ``git show
+<commit>:megapath_tpu_torch/csrc/locate.cu``). They are compiled with the
+library's own nvcc flags into ``<old>/libold_kernels.so`` and loaded
+beside the checkout's library (each with its own ctypes handle, so the
+two sets of symbols never meet); only the kernels the directory holds are
+compared. Every case runs old, new, new, old, each a median of 10
+CUDA-event timed launches through the port's wrappers
+(``chip_smoke._median_ms``: the card spins ahead of each one, so the
+events time the kernel and not the wrapper's host work), and both builds'
+outputs must equal the plain version's first. The cases are the main
+path's DP shapes; the walk on the toy workload's 8,192 walkers (default
+and exact dials) and the exact rescue's 1,024 walkers; the locate on the
+SA rows of the toy's 4,096 read ends' seeds, both builds on the same
+tables (the checkout's layout). With ``--large`` also the 512 Mbp shard's
+40,960 walkers, its rescue shape and the locate on their rows. A walk's
+time is also given per iteration of its longest walker, a locate's beside
+its bytes bound and, with ``--probe``, its chain floor. ``--probe``
+measures the card's dependent-load latency (``chip_smoke.load_latency``:
+one thread chasing pointers through an 8 MB and a 4 GB random cycle).
+``--locate-scan`` splits a locate launch's time (``locate_scan``). Lines
+go to stdout and to ``chiprun_out/kernel_turns.txt``.
 """
 
 from __future__ import annotations
@@ -49,31 +55,12 @@ from megapath_tpu_torch.ops.dp import DPParams, sw_align, sw_align_full  # noqa:
 OUT = ROOT / "chiprun_out" / "kernel_turns.txt"
 _lines = []
 
-# one thread follows next[] for `hops` hops; the caller times the launch
-PROBE_SRC = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-__global__ void chase(const uint32_t* __restrict__ next, long long hops,
-                      uint32_t* out) {
-  uint32_t i = 0;
-  for (long long h = 0; h < hops; ++h) i = next[i];
-  *out = i;
-}
-extern "C" int mp_chase(const void* next, long long hops, void* out,
-                        void* stream) {
-  chase<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(next), hops, static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
-}
-"""
-
-
 def say(line: str) -> None:
     print(line, flush=True)
     _lines.append(line)
 
 
-def nvcc_library(sources, out: Path, extra=()) -> ctypes.CDLL:
+def nvcc_library(sources, out: Path) -> ctypes.CDLL:
     """Compile ``sources`` (with the library's flags) into ``out``."""
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -81,7 +68,7 @@ def nvcc_library(sources, out: Path, extra=()) -> ctypes.CDLL:
         for src in sources:
             obj = Path(tmp) / (Path(src).stem + ".o")
             cmd = [nvcc, *_build.NVCC_FLAGS, *_build.EXTRA_FLAGS.get(Path(src).name, ()),
-                   *extra, "-c", "-o", str(obj), str(src)]
+                   "-c", "-o", str(obj), str(src)]
             subprocess.run(cmd, check=True, capture_output=True, text=True)
             objs.append(str(obj))
         subprocess.run([nvcc, *_build.ARCH, "-shared", "-o", str(out), *objs],
@@ -90,12 +77,13 @@ def nvcc_library(sources, out: Path, extra=()) -> ctypes.CDLL:
 
 
 class Turns:
-    """Runs a case with either library behind the port's wrappers."""
+    """Runs a case with any of its libraries (named, "old" and "new" for
+    the turns) behind the port's wrappers."""
 
-    def __init__(self, old: ctypes.CDLL, new: ctypes.CDLL):
-        self.libs = {"old": old, "new": new}
+    def __init__(self, libs: dict):
+        self.libs = libs
 
-    def use(self, which: str) -> None:
+    def use(self, which) -> None:
         _build._lib = self.libs[which]
 
     def check(self, tag, fn, want, fields) -> None:
@@ -181,70 +169,103 @@ def walk_cases(turns: Turns, dev, smi: str, fm, read_ends, tag: str) -> None:
                    bound_ms=cs.bound(0, nbytes)[0])
 
 
-def probe(dev, smi: str) -> None:
-    """ns a dependent load, one thread, through an 8 MB (L2) and a 4 GB
-    (device memory) random cycle of 64-byte-apart entries. The 4 GB chase
-    visits 2,000,000 entries (128 MB of lines) a launch, more than the L2
-    holds, so the timed launches do not find the warm-up's lines."""
-    d = ROOT / "build" / "probe"
-    d.mkdir(parents=True, exist_ok=True)
-    src = d / "chase.cu"
-    src.write_text(PROBE_SRC)
-    lib = nvcc_library([src], d / "libchase.so")
-    lib.mp_chase.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                             ctypes.c_void_p]
-    lib.mp_chase.restype = ctypes.c_int
-    stride = 16  # uint32 entries: 64 bytes apart
-    for name, nbytes, hops in (("8 MB (L2)", 8 << 20, 200_000), ("4 GB (HBM)", 4 << 30, 2_000_000)):
-        n = nbytes // 64
-        g = torch.Generator(device=dev).manual_seed(7)
-        perm = torch.randperm(n, device=dev, generator=g)
-        nxt = torch.zeros(n * stride, dtype=torch.int64, device=dev)
-        nxt[perm * stride] = torch.roll(perm, -1) * stride  # one cycle over all entries
-        nxt = nxt.to(torch.int32)
-        out = torch.zeros(1, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+def locate_cases(turns: Turns, smi: str, dfm, rows, tag: str, lat: dict, level: str) -> None:
+    """The locate on ``rows``, old against new on the same tables."""
+    stats = {}
+    want = seeding_dev.locate_device_plain(dfm, rows, stats=stats)
+    fn = lambda: seed_cuda.locate_cuda(dfm, rows)  # noqa: E731
+    turns.check(f"locate {tag}", fn, want, None)
+    line = f"locate {tag}, {len(rows)} rows, {stats['lf_steps']} LF steps"
+    if level in lat:
+        loads, floor_ms = cs.chain_floor(stats, lat[level])
+        line += f", chain floor {floor_ms:.4f} ms ({loads} loads x {lat[level]:.1f} ns)"
+    turns.time(line, fn, smi, bound_ms=cs.bound(0, cs.locate_bytes(len(rows), stats))[0])
 
-        def run():
-            if lib.mp_chase(nxt.data_ptr(), hops, out.data_ptr(), stream):
-                raise RuntimeError("mp_chase launch failed")
 
-        ms = cs._median_ms(run, reps=3)
-        say(f"[probe] dependent load, {name}: {1e6 * ms / hops:.1f} ns a hop "
-            f"({hops} hops, median of 3) [{smi}]")
-        del nxt, perm
+def locate_scan(turns: Turns, smi: str, dfm, rows, tag: str, lat: dict, level: str) -> None:
+    """What a locate launch's time is made of: an empty launch timed the
+    same way (the probe kernel with no hops), the chase of as many
+    dependent loads as the longest row's chain, and each build's locate
+    on the row with the longest chain, the 32 and the 1,024 longest, all
+    rows longest first (warps of equal chains) and all rows as the walk
+    gives them."""
+    dev = rows.device
+    pos = seeding_dev.locate_device_plain(dfm, rows)
+    steps = (pos.long() % dfm.sa_interval).cpu()  # LF steps to the mark
+    order = torch.argsort(steps, descending=True, stable=True).to(dev)
+    loads = int(steps.max()) + cs.CHAIN_EXTRA_LOADS
+    # a cycle over 8 MB (L2) or 4 GB (HBM) lines, as load_latency chases
+    nxt = cs.chase_table(dev, 8 << 20 if level == "L2" else 4 << 30)
+    say(f"[scan] locate {tag}: empty launch {cs.chase_ms(dev, nxt, 0):.4f} ms, chase of the "
+        f"longest chain's {loads} loads ({level} {lat.get(level, float('nan')):.1f} ns) "
+        f"{cs.chase_ms(dev, nxt, loads):.4f} ms [{smi}]")
+    del nxt
+    subsets = [(f"{m} longest", order[:m]) for m in (1, 32, 1024)]
+    subsets += [("all, longest first", order), ("all, as given", None)]
+    for which in ("old", "new", "new", "old"):
+        turns.use(which)
+        parts = []
+        for name, idx in subsets:
+            sub = rows if idx is None else rows[idx].contiguous()
+            fn = lambda: seed_cuda.locate_cuda(dfm, sub)  # noqa: E731
+            cs._hold(f"locate {tag} ({which}) on {name}", fn(),
+                     pos if idx is None else pos[idx], None)
+            parts.append(f"{name} {cs._median_ms(fn):.4f}")
+        say(f"[scan] locate {tag} {which}, ms on rows: " + ", ".join(parts) + f" [{smi}]")
+    turns.use("new")
+
+
+# the entry points each kernel source holds
+ENTRY_POINTS = {
+    "dp_full.cu": ("mp_dp_full", "mp_dp_fwd", "mp_dp_full_max_width"),
+    "mmp_seed.cu": ("mp_mmp_seed",),
+    "locate.cu": ("mp_locate",),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True, help="directory of the other version's sources")
-    ap.add_argument("--large", action="store_true", help="also the 512 Mbp shard's walk")
+    ap.add_argument("--large", action="store_true", help="also the 512 Mbp shard's cases")
     ap.add_argument("--probe", action="store_true", help="measure dependent-load latency")
+    ap.add_argument("--locate-scan", action="store_true",
+                    help="split a locate launch's time (empty launch, chase, row subsets)")
     args = ap.parse_args()
     smi = cs.phase_device()
     dev = torch.device("cuda", 0)
     old_dir = Path(args.old).resolve()
-    srcs = [old_dir / "dp_full.cu", old_dir / "mmp_seed.cu"]
-    srcs.append(old_dir / "locate.cu" if (old_dir / "locate.cu").exists()
-                else _build.CSRC / "locate.cu")
-    old = _build.bind(nvcc_library(srcs, old_dir / "libold_kernels.so"))
+    srcs = [old_dir / name for name in ENTRY_POINTS if (old_dir / name).exists()]
+    if not srcs:
+        raise SystemExit(f"{old_dir} holds none of {', '.join(ENTRY_POINTS)}")
+    old = _build.bind(nvcc_library(srcs, old_dir / "libold_kernels.so"),
+                      [e for src in srcs for e in ENTRY_POINTS[src.name]])
     new = _build.load()
+    have = {src.name for src in srcs}
     say(f"[turns] old: {', '.join(str(s.relative_to(ROOT)) for s in srcs)}; "
         f"new: {_build.LIB_PATH.relative_to(ROOT)}")
-    turns = Turns(old, new)
-    if args.probe:
-        probe(dev, smi)
-    dp_cases(turns, dev, smi)
-    ref, fm, reads1, lens1, reads2, lens2 = cs.toy_workload(dev)
-    ends = (np.concatenate([reads1[:2048], reads2[:2048]]),
-            np.concatenate([lens1[:2048], lens2[:2048]]))
-    walk_cases(turns, dev, smi, fm, ends, "toy")
+    turns = Turns({"old": old, "new": new})
+    lat = cs.load_latency(dev, smi) if args.probe else {}
+    for level, ns in lat.items():
+        say(f"[probe] dependent load, {level}: {ns:.1f} ns a hop [{smi}]")
+    if "dp_full.cu" in have:
+        dp_cases(turns, dev, smi)
+    workloads = [("toy", cs.toy_workload, 2048, "L2")]
     if args.large:
-        del fm
-        ref, fm, reads1, lens1, reads2, lens2 = cs.large_workload(dev)
-        ends = (np.concatenate([reads1[:10240], reads2[:10240]]),
-                np.concatenate([lens1[:10240], lens2[:10240]]))
-        walk_cases(turns, dev, smi, fm, ends, "512 Mbp")
+        workloads.append(("512 Mbp", cs.large_workload, 10240, "HBM"))
+    for tag, make, n, level in workloads:
+        ref, fm, *batch = make(dev)
+        ends = (np.concatenate([batch[0][:n], batch[2][:n]]),
+                np.concatenate([batch[1][:n], batch[3][:n]]))
+        if "mmp_seed.cu" in have:
+            walk_cases(turns, dev, smi, fm, ends, tag)
+        if "locate.cu" in have:
+            dfm = seeding_dev.DeviceFM.from_host(fm, dev)
+            rows = cs.seed_rows(dfm, batch, n)
+            locate_cases(turns, smi, dfm, rows, tag, lat, level)
+            if args.locate_scan:
+                locate_scan(turns, smi, dfm, rows, tag, lat, level)
+            del dfm, rows
+        del ref, fm, batch
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text("\n".join(_lines) + "\n")
     return 0
