@@ -111,10 +111,24 @@ exits non-zero and prints no result line):
                locate launched, each read end's positions hold its own);
                ``locate`` against its plain version on those rows, timed
                beside its chain floor. No file is written.
+13. db      -- ``build-db`` on the card: the world's NT FASTA (less the
+               taxon ``DB_EXCLUDE``, which filterDB drops), a small UniVec
+               FASTA and the world's human FASTA, curated against the mini
+               taxonomy of ``tests/fixtures`` and split at ``DB_SHARD_BP``
+               into two shards whose indexes are built on the card (curate,
+               split, pack, build and save seconds); every member of every
+               shard file and the curated FASTA equal the JAX ``build-db``'s
+               record; then the world's gzip FASTQ through ``run`` on those
+               shards on device seeding (its seconds and launches), the
+               reports and both LSAM.id files equal the JAX CLI's record
+               (``tests/fixtures/torch_db_records.json``).
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
-walk and the locate). The line before the last lists the kernels as JSON; the last line is
+walk and the locate). The line before the last lists the kernels as JSON,
+one entry for each TPU kernel the port replaces (``mp_dp_full`` serves
+both layouts of the full DP, so ``dp_full_rows`` carries ``dp_full``'s
+launches and times); the last line is
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
@@ -177,7 +191,13 @@ KERNELS = {
                  "megapath_tpu/align/seeding_jax.py:346"),
     "locate": ("megapath_tpu_torch/csrc/locate.cu",
                "megapath_tpu/align/seeding_jax.py:1031"),
+    "dp_full_rows": ("megapath_tpu_torch/csrc/dp_full.cu",
+                     "megapath_tpu/ops/dp_pallas.py:111"),
 }
+# a TPU kernel whose contract another port kernel serves, with that
+# kernel's launches and times: the row-major _dp_full_kernel has the
+# transposed kernel's contract, and mp_dp_full serves both layouts
+SERVED_BY = {"dp_full_rows": "dp_full"}
 FIELDS = ("score", "end_ref", "end_read", "start_ref", "start_read")
 FWD_FIELDS = ("score", "end_ref", "end_read")
 STEP_FIELDS = ("score", "end_ref", "end_read", "passed")
@@ -928,6 +948,112 @@ def e2e_run_argv(d: Path, prefix: str, hg_index=None) -> list:
 
 # the community's index flags (phase 10's sa_interval and lut_k)
 E2E_INDEX_ARGS = ("--sa-interval", "8", "--lut-k", "8")
+
+
+# ----------------------------------------------------------------------
+# build-db's files (phase 13; tests/test_torch_cli_db.py and
+# tests/fixtures/make_torch_db_records.py use them with either CLI)
+# ----------------------------------------------------------------------
+# the curated world splits at 15,000 bp into two shards: E. coli and
+# Salmonella; SARS-CoV-2, the UniVec segments and the human sequence
+DB_SHARD_BP = 15_000
+# filterDB drops the world's HCoV-229E genome by its species' name
+DB_EXCLUDE = "Human coronavirus 229E"
+DB_SHARDS = 2
+
+
+def univec_entries(seed: int = 321) -> list:
+    """A small UniVec FASTA's (name, description, codes): the TruSeq
+    adapter with a random tail and a random vector segment, in UniVec's
+    ``gnl|uv|ACC:range`` headers (accessions createDB keeps without a
+    taxonomy row)."""
+    rng = np.random.default_rng(seed)
+    adapter = np.frombuffer(TRUSEQ.encode(), np.uint8)
+    adapter = np.searchsorted(_ACGT, adapter).astype(np.uint8)
+    tail = rng.integers(0, 4, 40).astype(np.uint8)
+    return [("gnl|uv|UV000001.1:1-73", "TruSeq adapter", np.concatenate([adapter, tail])),
+            ("gnl|uv|UV000002.1:1-200", "cloning vector segment",
+             rng.integers(0, 4, 200).astype(np.uint8))]
+
+
+def write_db_files(world, d: Path) -> None:
+    """``build-db``'s inputs under ``d``: the world's raw NT FASTA (its two
+    shards' genomes), a UniVec FASTA, the world's human FASTA, the TruSeq
+    adapter FASTA and the pairs as gzip FASTQ; and the database's
+    directory."""
+    (d / "db").mkdir(parents=True, exist_ok=True)
+    write_fasta(d / "nt.fa", world["nt"][0] + world["nt"][1])
+    write_fasta(d / "univec.fa", univec_entries())
+    write_fasta(d / "hg.fa", world["hg"])
+    (d / "adapters.fa").write_text(f">truseq\n{TRUSEQ}\n")
+    write_fastq_pairs(world["pairs"], d / "r1.fq.gz", d / "r2.fq.gz")
+
+
+def db_build_argv(d: Path) -> list:
+    """``build-db`` of ``write_db_files``' inputs against the mini
+    taxonomy, the default sa_interval and lut_k, two shards."""
+    return ["build-db", "--nt", str(d / "nt.fa"), "--univec", str(d / "univec.fa"),
+            "--human", str(d / "hg.fa"), "--nodes", str(FIX / "nodes.dmp"),
+            "--names", str(FIX / "names.dmp"), "--acc2tid", str(FIX / "acc2tid.map"),
+            "--exclude-taxa", DB_EXCLUDE, "--out-prefix", str(d / "db" / "nt"),
+            "--shard-bp", str(DB_SHARD_BP)]
+
+
+def db_run_argv(d: Path, prefix: str) -> list:
+    """``run`` of the world's pairs on build-db's shards: bbduk with the
+    TruSeq table, no human index (the human sequence is in the database),
+    device seeding, 2 x 250 bp."""
+    return ["run", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+            "--nt-index", *(str(d / "db" / f"shard{i}") for i in range(DB_SHARDS)),
+            "--adapters", str(d / "adapters.fa"), "--nodes", str(FIX / "nodes.dmp"),
+            "--names", str(FIX / "names.dmp"), "--acc2tid", str(FIX / "acc2tid.map"),
+            "-L", "250"]
+
+
+def npz_digest(path) -> dict:
+    """{member: sha256 of its dtype, shape and contents} of an .npz file:
+    what two index files are compared by."""
+    out = {}
+    with np.load(path, allow_pickle=True) as z:
+        for k in sorted(z.files):
+            a = z[k]
+            body = repr(a.tolist()).encode() if a.dtype == object else a.tobytes()
+            h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode() + body)
+            out[k] = h.hexdigest()
+    return out
+
+
+def db_records(main, extra=()) -> dict:
+    """The db phase's inputs through ``main`` (either package's CLI, with
+    ``extra`` appended to each argv): ``build-db`` and then ``run`` in a
+    temporary directory; ``db_record`` beside the workload's digest."""
+    import tempfile
+
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    out = {"workload": f"chip_smoke.world_workload({WORLD_PAIRS_PER_KIND}) through "
+                       "write_db_files, build-db (db_build_argv) then run (db_run_argv)",
+           "input_sha256": pairs_digest(world["pairs"])}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_db_files(world, d)
+        for argv in (db_build_argv(d), db_run_argv(d, str(d / "run"))):
+            if main([*argv, *extra]) != 0:
+                raise AssertionError(f"[db] {argv[0]} exited non-zero")
+        out.update(db_record(d, str(d / "run")))
+    return out
+
+
+def db_record(d: Path, prefix: str) -> dict:
+    """What the build-db gates compare (either package's build-db and
+    run): the curated FASTA's sha256, every shard file's members, and the
+    run's ``cli_record``."""
+    db = d / "db"
+    return {
+        "curated_sha256": hashlib.sha256((db / "nt.curated.fa").read_bytes()).hexdigest(),
+        "shards": {f"shard{i}{suf}": npz_digest(db / f"shard{i}{suf}")
+                   for i in range(DB_SHARDS) for suf in (".ref.npz", ".fm.npz")},
+        "run": cli_record(prefix),
+    }
 
 
 # ----------------------------------------------------------------------
@@ -1894,6 +2020,27 @@ def cli_world(dev: torch.device, smi: str, d: Path) -> None:
               f"merged and 2 shard BAMs' content equal the JAX CLI's; launches {counts} [{smi}]")
 
 
+@contextlib.contextmanager
+def _index_stages(split: Split):
+    """Time the index build's stages into ``split`` while the CLI runs
+    it: the FASTA split, the pack, the build and the save."""
+    from megapath_tpu_torch.index import fm as fm_mod
+    from megapath_tpu_torch.index import pack as pack_mod
+    from megapath_tpu_torch.index import shard as shard_mod
+
+    patches = [(shard_mod, "split_fasta", "split"), (pack_mod, "pack_fasta_file", "pack"),
+               (fm_mod, "build_fm_index", "build"), (pack_mod.PackedReference, "save", "save"),
+               (fm_mod.FMIndex, "save", "save")]
+    orig = [getattr(o, n) for o, n, _ in patches]
+    for o, n, k in patches:
+        setattr(o, n, split.wrap(k, getattr(o, n)))
+    try:
+        yield
+    finally:
+        for (o, n, _), fn in zip(patches, orig):
+            setattr(o, n, fn)
+
+
 def cli_index_large(dev: torch.device, smi: str, ref: PackedReference, d: Path) -> str:
     """``large_workload``'s 512 Mbp genome as FASTA through ``build-index``
     on the card: the split, pack, build and save times, the build's peak
@@ -1902,8 +2049,6 @@ def cli_index_large(dev: torch.device, smi: str, ref: PackedReference, d: Path) 
     file sizes. Returns the index prefix."""
     import gc
 
-    from megapath_tpu_torch.index import fm as fm_mod
-    from megapath_tpu_torch.index import pack as pack_mod
     from megapath_tpu_torch.index import shard as shard_mod
 
     (d / "hg").mkdir(parents=True, exist_ok=True)
@@ -1912,22 +2057,13 @@ def cli_index_large(dev: torch.device, smi: str, ref: PackedReference, d: Path) 
                               for i, name in enumerate(ref.names)])
     write_s = time.perf_counter() - t
     split = Split()
-    patches = [(shard_mod, "split_fasta", "split"), (pack_mod, "pack_fasta_file", "pack"),
-               (fm_mod, "build_fm_index", "build"), (pack_mod.PackedReference, "save", "save"),
-               (fm_mod.FMIndex, "save", "save")]
-    orig = [getattr(o, n) for o, n, _ in patches]
-    for o, n, k in patches:
-        setattr(o, n, split.wrap(k, getattr(o, n)))
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    try:
+    with _index_stages(split):
         dt, _ = _cli(["build-index", d / "hg.fa", d / "hg" / "hg", "--sa-interval", "4",
                       "--lut-k", "8"], dev)
-    finally:
-        for (o, n, _), fn in zip(patches, orig):
-            setattr(o, n, fn)
     n = ref.total_len
     per_char = (torch.cuda.max_memory_allocated(dev) - base) / n
     total = torch.cuda.get_device_properties(dev).total_memory
@@ -2152,6 +2288,54 @@ def phase_shard(dev: torch.device, smi: str, lat: dict) -> float:
     return secs
 
 
+def _db_records() -> dict:
+    return json.loads((FIX / "torch_db_records.json").read_text())
+
+
+def phase_db(dev: torch.device, smi: str) -> float:
+    """``build-db`` on the card, then ``run`` on its shards on device
+    seeding: the curated FASTA, every member of both shards' files, the
+    reports and both LSAM.id files equal the JAX CLI's record. Returns
+    the phase's seconds."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    want = _db_records()
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if pairs_digest(world["pairs"]) != want["input_sha256"]:
+        raise AssertionError("[db] the world's inputs differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_db_files(world, d)
+        split = Split()
+        with _index_stages(split):
+            build_s, err = _cli(db_build_argv(d), dev)
+        t = split.t
+        print(f"[db] build-db on the card: {build_s:.3f} s = curate (taxonomy, createDB, "
+              f"filterDB, curated FASTA) and the rest {build_s - sum(t.values()):.3f} s, "
+              f"FASTA split {t['split']:.3f} s, pack {t['pack']:.3f} s, build "
+              f"{t['build']:.3f} s, save {t['save']:.3f} s; "
+              f"{' '.join(l for l in err.splitlines() if 'curated' in l or 'shard(s)' in l)} "
+              f"[{smi}]")
+        zero_counts()
+        run_s, _ = _cli(db_run_argv(d, str(d / "run")), dev)
+        counts = read_counts()
+        _require_launches("db run", counts, ("dp_full", "mmp_seed", "locate"))
+        got = db_record(d, str(d / "run"))
+    bad = [k for k in ("curated_sha256", "shards") if got[k] != want[k]]
+    bad += [(k, *text_diff(got["run"][k], want["run"][k])) for k in ("report", "ra_report")
+            if got["run"][k] != want["run"][k]]
+    bad += [k for k in ("lsam_sha256", "ra_lsam_sha256") if got["run"][k] != want["run"][k]]
+    if bad:
+        raise AssertionError(f"[db] differs from the JAX CLI's record: {bad}")
+    secs = time.perf_counter() - t_phase
+    print(f"[db] run on build-db's {DB_SHARDS} shards, device seeding: {run_s:.3f} s; the "
+          f"curated FASTA, every shard file member, both reports and both LSAM.id files "
+          f"equal the JAX CLI's; launches {counts}; the phase took {secs:.1f} s [{smi}]")
+    return secs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2174,13 +2358,14 @@ def main() -> int:
     phase_cli(dev, smi, large)
     del large
     shard_s = phase_shard(dev, smi, lat)
+    db_s = phase_db(dev, smi)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
-          f"(the default-shard phase {shard_s:.1f} s) [{smi}]")
+          f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         **{k: timing[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
+         "launches": launches[SERVED_BY.get(name, name)],
+         **{k: timing[SERVED_BY.get(name, name)][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

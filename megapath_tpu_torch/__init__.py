@@ -16,13 +16,17 @@ layout and names:
                                 versions and the hand-written CUDA kernels
                                 (``csrc/``).
 - ``megapath_tpu_torch.index``  shard packing and the FM index (suffix
-                                array sorted on a torch device).
-- ``megapath_tpu_torch.io``     FASTQ/FASTA input, batch streaming, LSAM.
+                                array sorted on a torch device), the
+                                offline DB tools (``dbtools``).
+- ``megapath_tpu_torch.io``     FASTQ/FASTA input, batch streaming, LSAM,
+                                SAM/BAM, SAM -> cfq.
 - ``megapath_tpu_torch.filters``, ``.taxonomy``, ``.classify``, ``.utils``
                                 the pipeline's host stages (bbduk and
                                 SPIKE with host C++ in ``csrc/host/``,
                                 built by ``native.py``), taxonomy, reports,
-                                reassignment, stage timing.
+                                reassignment, the protein-remap and cleanup
+                                tools, stage timing, accuracy evaluation.
+- ``megapath_tpu_torch.cli``    the command line (``megapath-tpu-torch``).
 - ``megapath_tpu_torch.convert`` the state carried across from the
                                 reference (parameters, shard, FM index,
                                 taxonomy).

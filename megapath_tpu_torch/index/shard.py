@@ -20,8 +20,8 @@ int64 key buffers, two int32 position buffers and the text
 builds the 2.0 Gbp default shard. Whatever the card's memory, a shard
 stays below ``MAX_SHARD_BP`` (~2.1 Gbp), which int32 coordinates set.
 ``build_shard_indexes`` refuses a shard the card cannot hold before it
-allocates anything there, and names ``--device cpu``, which builds it in
-host memory.
+allocates anything there, every shard checked before the first is built,
+and names ``--device cpu``, which builds it in host memory.
 """
 
 from __future__ import annotations
@@ -70,6 +70,17 @@ def check_shard_fits(n_bp: int, device: torch.device) -> None:
         )
 
 
+def fasta_bp(path) -> int:
+    """The characters a FASTA file's sequences hold, as ``pack_fasta_file``
+    counts them (``total_len``), without packing it."""
+    n = 0
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.startswith(b">"):
+                n += len(line.rstrip(b"\n"))
+    return n
+
+
 def split_fasta(path, out_prefix: str, max_bp: int = DEFAULT_SHARD_BP) -> List[str]:
     """Write ``{out_prefix}.{i}.fa`` shards each <= max_bp bases.
 
@@ -110,16 +121,19 @@ def build_shard_indexes(
     device: torch.device,
 ) -> List[Tuple[str, str]]:
     """Build (packed-ref, fm-index) npz pairs for every shard, each index
-    built on ``device``. Raises before a card allocation for a shard the
-    card cannot hold (``check_shard_fits``)."""
+    built on ``device``. On a card every shard is checked first, so one
+    the card cannot hold raises (``check_shard_fits``) before any shard is
+    built or written."""
     from megapath_tpu_torch.index.fm import build_fm_index
     from megapath_tpu_torch.index.pack import pack_fasta_file
 
+    if torch.device(device).type == "cuda":
+        for p in shard_paths:
+            check_shard_fits(fasta_bp(p), device)
     os.makedirs(out_dir, exist_ok=True)
     out: List[Tuple[str, str]] = []
     for i, p in enumerate(shard_paths):
         ref = pack_fasta_file(p)
-        check_shard_fits(ref.total_len, device)
         fm = build_fm_index(ref.codes, sa_interval=sa_interval, lut_k=lut_k, device=device)
         ref_path = os.path.join(out_dir, f"shard{i}.ref.npz")
         fm_path = os.path.join(out_dir, f"shard{i}.fm.npz")

@@ -1,8 +1,9 @@
 """Kraken/Pavian-style taxonomic report.
 
-The port's copy of ``KrakenReport`` and ``gen_kraken_report`` from
-``megapath_tpu/taxonomy/report.py``, held equal to it and to the
-reference tool's goldens by ``tests/test_torch_host.py``.
+The port's copy of ``KrakenReport``, ``gen_kraken_report`` and
+``japsa_to_kraken`` from ``megapath_tpu/taxonomy/report.py``, held equal
+to it and to the reference tool's goldens by ``tests/test_torch_host.py``
+and ``tests/test_torch_extras.py``.
 
 Byte-parity equivalent of the reference's cc/genKrakenReport.cpp: per
 read, the LCA of its hit taxids is counted; clade counts accumulate up the
@@ -133,4 +134,38 @@ def gen_kraken_report(db: TaxDB, lsam_id_lines: Iterable[str],
     for line in lsam_id_lines:
         if line.strip():
             rpt.add_lsam_line(line, score_threshold)
+    return rpt.format()
+
+
+def japsa_to_kraken(
+    db: TaxDB,
+    lines,
+    taxid_col: int = 4,
+    aligned_col: int = 8,
+    delimiter: str = "\t",
+) -> str:
+    """Japsa nanopore species-typing TSV -> Kraken-style report.
+
+    Mirrors the reference's cc/Japsa/genKrakenReportFromJapsaOutput.cpp:
+    column ``taxid_col`` holds the taxid, ``aligned_col`` the aligned
+    read count; counts accumulate up the lineage and print in the same
+    table shape as genKrakenReport.
+    """
+    rpt = KrakenReport(db)
+    first = True
+    for line in lines:
+        if first:  # header row
+            first = False
+            continue
+        cols = line.rstrip("\n").split(delimiter)
+        if len(cols) <= max(taxid_col, aligned_col):
+            continue
+        try:
+            tid = int(float(cols[taxid_col]))
+            n = int(float(cols[aligned_col]))
+        except ValueError:
+            continue
+        for _ in range(max(n, 0)):
+            rpt._count_lca(tid)
+            rpt.total_reads += 1
     return rpt.format()

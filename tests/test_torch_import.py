@@ -59,7 +59,36 @@ import megapath_tpu_torch.classify.taxlookup
 import megapath_tpu_torch.index.shard
 import megapath_tpu_torch.io.bam
 import megapath_tpu_torch.io.sam
+import megapath_tpu_torch.classify.extras
+import megapath_tpu_torch.io.sam2cfq
+import megapath_tpu_torch.utils.accuracy
+import megapath_tpu_torch.index.dbtools
 import chip_smoke
+
+# the subcommands import their modules when they run: run each host tool
+# once so that a jax import inside one would show here
+import io, os, tempfile
+from megapath_tpu_torch import cli
+with tempfile.TemporaryDirectory() as d:
+    m8 = os.path.join(d, "a.m8")
+    with open(m8, "w") as f:
+        f.write("q1\t562\t99\t50\t0\t0\t1\t50\t10\t59\t1e-9\t90\n")
+    lsam = os.path.join(d, "a.lsam")
+    with open(lsam, "w") as f:
+        f.write("r1\t64\t50\tACGT\tIIII\t50,562\nr1\t128\t10\tTTAA\tIIII\t*\n")
+    sam = os.path.join(d, "a.sam")
+    with open(sam, "w") as f:
+        f.write("r9\t0\tchr1\t10\t60\t4M\t*\t0\t0\tACGT\tIIII\tNM:i:0\n")
+    out = sys.stdout
+    sys.stdout = io.StringIO()
+    try:
+        for argv in (["m8-to-lsam", m8], ["m8-cov", m8], ["maplen-hist", m8],
+                     ["extract", "-t", "40", lsam], ["cleanup", lsam], ["sam2cfq", sam],
+                     ["r2c-to-r2g", lsam, lsam],
+                     ["count-table", "tests/fixtures/nodes.dmp", "tests/fixtures/names.dmp", lsam]):
+            assert cli.main(argv) == 0, argv
+    finally:
+        sys.stdout = out
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("BAD", bad)
