@@ -21,9 +21,10 @@ exits non-zero and prints no result line):
                step of the locate's chain costs.
    The toy workload (4 x 2 Mbp, 20,000 pairs x 100 bp, made here as
    ``bench.py`` makes it, its FM index built on the card) is made next;
-   phases 3 and 5 use it. Its FM index and that of a 1 Mbp tandem repeat
-   (many doubling rounds) built on the card equal the ones built on the
-   CPU (``torch.sort``), key by key.
+   phases 3 and 5 use it. Its FM index, that of a 1 Mbp tandem repeat
+   (many doubling rounds) and that of phase 14's realistic contigs (the
+   JAX record's, at the contig index's sa_interval 4) built on the card
+   equal the ones built on the CPU (``torch.sort``), key by key.
 3. kernels  -- each kernel against its plain PyTorch version on the card,
                every output equal (tolerance 0), median CUDA-event times
                of both beside the bound (the DP's cells at the card's
@@ -122,6 +123,22 @@ exits non-zero and prints no result line):
                shards on device seeding (its seconds and launches), the
                reports and both LSAM.id files equal the JAX CLI's record
                (``tests/fixtures/torch_db_records.json``).
+14. asm     -- the assembly stage, ``run -A`` (bbnorm and the multi-k
+               assembler on the host, the contigs indexed at sa_interval 4
+               and the reads aligned back on the card). The world part: the
+               world's indexes by ``build-index``, its pairs plus a dense
+               SARS-CoV-2 tiling through ``run -A`` on device and on host
+               seeding. The realistic part: the world's 88 pairs plus
+               9,000 pairs of two random viruses no index holds (29,903 bp
+               at ~40x, 5,000 bp at ~300x; 2 x 150 bp, insert 400, 0.2%
+               substitutions) through ``run`` and then ``run -A`` on the
+               same prefix, so the second run is the assembly stage alone:
+               its seconds split into extract, bbnorm, assemble, contig
+               index and align back, the pairs bbnorm keeps, the contigs,
+               N50, total length and each virus's recovery, and the contig
+               engine's launches (the DP, the walk and the locate). Every
+               contigs FASTA, r2c LSAM, report and LSAM.id equals the JAX
+               CLI's record (``tests/fixtures/torch_asm_records.json``).
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -148,6 +165,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -178,6 +196,7 @@ from megapath_tpu_torch.ops.dp import (  # noqa: E402
     sw_align_full,
 )
 from megapath_tpu_torch.pipeline.megapath import MegaPathPipeline, PipelineConfig  # noqa: E402
+from megapath_tpu_torch.pipeline.multik import genome_recovery, n50  # noqa: E402
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB  # noqa: E402
 from megapath_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
@@ -886,11 +905,14 @@ def world_build_argvs(d: Path) -> list:
                              ("ribo", ()))]
 
 
-def world_run_argv(d: Path, prefix: str, device_seeding: bool, bam: bool = True) -> list:
+def world_run_argv(d: Path, prefix: str, device_seeding: bool, bam: bool = True,
+                   reads: Optional[Path] = None) -> list:
     """``run`` over the world's files and indexes (bbduk with the TruSeq
-    table, the hg and ribo filters, two NT shards, 2 x 250 bp)."""
+    table, the hg and ribo filters, two NT shards, 2 x 250 bp); the pairs
+    are ``reads`` (default ``d``)'s ``r1.fq.gz`` and ``r2.fq.gz``."""
+    reads = d if reads is None else reads
     return [
-        "run", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+        "run", "-1", str(reads / "r1.fq.gz"), "-2", str(reads / "r2.fq.gz"), "-p", prefix,
         "--nt-index", str(d / "nt" / "shard0"), str(d / "nt" / "shard1"),
         "--hg-index", str(d / "hg" / "shard0"), "--ribo-index", str(d / "ribo" / "shard0"),
         "--adapters", str(d / "adapters.fa"), "--nodes", str(FIX / "nodes.dmp"),
@@ -1054,6 +1076,153 @@ def db_record(d: Path, prefix: str) -> dict:
                    for i in range(DB_SHARDS) for suf in (".ref.npz", ".fm.npz")},
         "run": cli_record(prefix),
     }
+
+
+# ----------------------------------------------------------------------
+# the assembly stage's files (phase 14; tests/test_torch_cli_asm.py and
+# tests/fixtures/make_torch_asm_records.py use them with either CLI)
+# ----------------------------------------------------------------------
+# start positions of the dense SARS-CoV-2 tiling added to the world's
+# pairs (tests/test_pipeline.py:216-237's, at 2 x 250 bp, insert 600)
+ASM_TILE = range(1000, 1600, 10)
+# the realistic part: two "novel" viruses that no index holds, (name,
+# genome length, pairs): SARS-CoV-2's length at ~40x, and 5 kbp at ~300x,
+# deep enough that bbnorm's target of 70 tosses pairs
+ASM_VIRUSES = (("novel_virus_A", 29_903, 4_000), ("novel_virus_B", 5_000, 5_000))
+ASM_READ_LEN, ASM_INSERT, ASM_ERR, ASM_SEED = 150, 400, 0.002, 29
+
+
+def asm_world_pairs(world) -> list:
+    """The world's pairs plus a dense tiling of its SARS-CoV-2 genome
+    (error-free, 2 x 250 bp, insert 600): viral pairs enough for the
+    assembler to build a contig."""
+    g = next(c for shard in world["nt"] for n, _, c in shard if n == "NC_045512.1")
+    good = "I" * 250
+    return list(world["pairs"]) + [
+        (f"tile{i}", _text(g[p : p + 250]), good, _text(_COMP[g[p + 350 : p + 600][::-1]]), good)
+        for i, p in enumerate(ASM_TILE)]
+
+
+def asm_realistic_workload():
+    """A sample's viral leftovers at the sizes the assembler gets from
+    runMegaPath.sh:274-283: ``ASM_VIRUSES``' random genomes, 2 x
+    ``ASM_READ_LEN`` bp pairs at insert ``ASM_INSERT`` from uniform
+    positions, ``ASM_ERR`` substitutions a base, in a shuffled order.
+    Returns ({name: genome text}, pairs as (name, seq1, qual1, seq2,
+    qual2))."""
+    rng = np.random.default_rng(ASM_SEED)
+    L, ins = ASM_READ_LEN, ASM_INSERT
+    genomes, pairs = {}, []
+    for name, n, n_pairs in ASM_VIRUSES:
+        g = rng.integers(0, 4, n).astype(np.uint8)
+        genomes[name] = _text(g)
+        for i, p in enumerate(rng.integers(0, n - ins + 1, n_pairs)):
+            ends = [g[p : p + L].copy(), _COMP[g[p + ins - L : p + ins][::-1]]]
+            for arr in ends:
+                hit = np.flatnonzero(rng.random(L) < ASM_ERR)
+                arr[hit] = (arr[hit] + rng.integers(1, 4, len(hit))) % 4
+            pairs.append((f"{name}_{i}", _text(ends[0]), "I" * L, _text(ends[1]), "I" * L))
+    return genomes, [pairs[i] for i in rng.permutation(len(pairs))]
+
+
+def asm_run_argv(d: Path, prefix: str, device_seeding: bool, reads: Optional[Path] = None,
+                 assembly: bool = True) -> list:
+    """``run -A`` over the world's indexes (``world_run_argv`` without
+    ``-b``) on ``reads``' pairs."""
+    return world_run_argv(d, prefix, device_seeding, bam=False, reads=reads) + (
+        ["-A"] if assembly else [])
+
+
+def asm_record(prefix: str) -> dict:
+    """What the assembly gates compare (either package's ``run -A``): the
+    contigs' FASTA, the r2c LSAM's sha256 and line count, and the run's
+    ``cli_record``."""
+    r2c = Path(prefix + ".r2c.lsam").read_bytes()
+    return {"contigs_fa": Path(prefix + ".contigs.fa").read_text(),
+            "r2c_sha256": hashlib.sha256(r2c).hexdigest(), "r2c_lines": r2c.count(b"\n"),
+            **cli_record(prefix)}
+
+
+def asm_stats(contigs_fa: str, genomes: dict, extracted: int, kept: int) -> dict:
+    """The assembly's measures: the pairs bbnorm got and kept, the
+    contigs, their N50 and total length, each genome's recovery (the
+    share of its 31-mers that the contigs hold on either strand)."""
+    contigs = contigs_fa.splitlines()[1::2]
+    return {"extracted_pairs": extracted, "kept_pairs": kept, "contigs": len(contigs),
+            "n50": n50(contigs), "total_bp": sum(map(len, contigs)),
+            "recovery": {name: genome_recovery(contigs, g) for name, g in genomes.items()}}
+
+
+@contextlib.contextmanager
+def _bbnorm_probe(assembly_module, seen: dict):
+    """Record into ``seen`` the pairs ``normalize_pairs`` gets and keeps
+    while ``assembly_module`` (either package's ``pipeline.assembly``)
+    runs its assembly path."""
+    fn = assembly_module.normalize_pairs
+
+    def run(seqs1, *a, **k):
+        keep = fn(seqs1, *a, **k)
+        seen["extracted"] = seen.get("extracted", 0) + len(seqs1)
+        seen["kept"] = seen.get("kept", 0) + int(np.sum(keep))
+        return keep
+
+    assembly_module.normalize_pairs = run
+    try:
+        yield
+    finally:
+        assembly_module.normalize_pairs = fn
+
+
+def write_asm_files(world, d: Path) -> None:
+    """The assembly phase's inputs under ``d``: the world's files with
+    ``asm_world_pairs`` as its gzip FASTQ, and under ``d / "real"`` the
+    realistic part's pairs (``asm_realistic_workload`` after the world's
+    own pairs)."""
+    write_world_files(world, d)
+    write_fastq_pairs(asm_world_pairs(world), d / "r1.fq.gz", d / "r2.fq.gz")
+    (d / "real").mkdir(exist_ok=True)
+    _, pairs = asm_realistic_workload()
+    write_fastq_pairs(list(world["pairs"]) + pairs, d / "real" / "r1.fq.gz",
+                      d / "real" / "r2.fq.gz")
+
+
+def asm_world_records(main, d: Path, extra=()) -> dict:
+    """The world part through ``main`` (either package's CLI, ``extra``
+    appended to each argv) in ``d``: ``build-index`` of the world, then
+    ``run -A`` on device and on host seeding; ``asm_record`` of each."""
+    out = {}
+    for argv in world_build_argvs(d):
+        if main([*argv, *extra]) != 0:
+            raise AssertionError(f"[asm] {argv[0]} exited non-zero")
+    for device_seeding, key in ((True, "device_seeding"), (False, "host_seeding")):
+        if main([*asm_run_argv(d, str(d / key), device_seeding), *extra]) != 0:
+            raise AssertionError("[asm] run -A exited non-zero")
+        out[key] = asm_record(str(d / key))
+    return out
+
+
+def asm_realistic_record(main, assembly_module, d: Path, extra=()) -> dict:
+    """The realistic part through ``main`` in ``d`` (the world's indexes
+    built): ``run`` on device seeding, then ``run -A`` on the same prefix,
+    which the journal reduces to the assembly stage; ``asm_record`` and
+    ``asm_stats``."""
+    prefix = str(d / "real" / "run")
+    seen: dict = {}
+    for assembly in (False, True):
+        with _bbnorm_probe(assembly_module, seen):
+            argv = asm_run_argv(d, prefix, True, reads=d / "real", assembly=assembly)
+            if main([*argv, *extra]) != 0:
+                raise AssertionError("[asm] realistic run exited non-zero")
+    rec = asm_record(prefix)
+    genomes, _ = asm_realistic_workload()
+    return {**rec, "stats": asm_stats(rec["contigs_fa"], genomes, seen["extracted"],
+                                      seen["kept"])}
+
+
+def asm_digests(world) -> dict:
+    """The sha256 of the world part's and the realistic part's pairs."""
+    return {"world_input_sha256": pairs_digest(asm_world_pairs(world)),
+            "realistic_input_sha256": pairs_digest(asm_realistic_workload()[1])}
 
 
 # ----------------------------------------------------------------------
@@ -1505,32 +1674,45 @@ def fm_diff(got, want) -> list:
     return bad
 
 
+def contig_text() -> np.ndarray:
+    """The realistic assembly's contigs (the JAX record of phase 14)
+    packed as ``assembly_path`` packs them before it indexes them."""
+    fa = _asm_records()["realistic"]["contigs_fa"].splitlines()
+    return pack_fasta([FastqRecord(n[1:], c) for n, c in zip(fa[::2], fa[1::2])]).codes
+
+
 def phase_index(dev: torch.device, toy) -> None:
     """The FM index built on the card (CUB's pair sort) equals the one
-    built on the CPU (torch.sort), key by key with dtypes: the toy's text
-    and a 1 Mbp tandem repeat."""
+    built on the CPU (torch.sort), key by key with dtypes: the toy's text,
+    a 1 Mbp tandem repeat, and the realistic assembly's contigs at the
+    contig index's sa_interval 4."""
     from megapath_tpu_torch.ops import sort_cuda
 
     ref, toy_fm = toy[0], toy[1]
-    for tag, codes, card_fm in (("toy", ref.codes, toy_fm), ("1 Mbp tandem repeat", repeat_text(), None)):
+    for tag, codes, card_fm, sa_interval in (
+            ("toy", ref.codes, toy_fm, 8), ("1 Mbp tandem repeat", repeat_text(), None, 8),
+            ("assembly contigs", contig_text(), None, 4)):
         rounds = ""
         if card_fm is None:
             stages = {}
             sort_cuda.sort_launches = 0
-            card_fm = build_fm_index(codes, sa_interval=8, lut_k=8, device=dev, stages=stages)
+            card_fm = build_fm_index(codes, sa_interval=sa_interval, lut_k=8, device=dev,
+                                     stages=stages)
             n_rounds = sum(k.startswith("sort round") for k in stages)
             if sort_cuda.sort_launches != n_rounds:
                 raise AssertionError(f"[index] {tag}: {sort_cuda.sort_launches} CUB sorts for "
                                      f"{n_rounds} doubling rounds")
             rounds = f", {n_rounds} doubling rounds ({sort_cuda.sort_launches} CUB sorts)"
         t = time.perf_counter()
-        cpu_fm = build_fm_index(codes, sa_interval=8, lut_k=8, device=torch.device("cpu"))
+        cpu_fm = build_fm_index(codes, sa_interval=sa_interval, lut_k=8,
+                                device=torch.device("cpu"))
         cpu_s = time.perf_counter() - t
         bad = fm_diff(card_fm, cpu_fm)
         if bad:
             raise AssertionError(f"[index] {tag}: the card's FM index differs from the CPU's in {bad}")
-        print(f"[index] {tag} ({len(codes)} bp{rounds}): the FM index built on the card equals "
-              f"the CPU's key by key, dtypes included (CPU build {cpu_s:.1f} s)")
+        print(f"[index] {tag} ({len(codes)} bp, sa_interval {sa_interval}{rounds}): the FM "
+              f"index built on the card equals the CPU's key by key, dtypes included (CPU "
+              f"build {cpu_s:.1f} s)")
 
 
 def phase_golden(dev: torch.device) -> None:
@@ -2336,6 +2518,101 @@ def phase_db(dev: torch.device, smi: str) -> float:
     return secs
 
 
+def _asm_records() -> dict:
+    return json.loads((FIX / "torch_asm_records.json").read_text())
+
+
+def _asm_diff(got: dict, want: dict) -> list:
+    """The fields of two ``asm_record``s that differ."""
+    bad = [(k, *text_diff(got[k], want[k])) for k in ("contigs_fa", "report", "ra_report")
+           if got[k] != want[k]]
+    return bad + [(k, got[k], want[k]) for k in ("r2c_sha256", "r2c_lines", "lsam_sha256",
+                                                "ra_lsam_sha256") if got[k] != want[k]]
+
+
+def phase_asm(dev: torch.device, smi: str) -> float:
+    """The assembly stage (``run -A``) on the card. The world part: the
+    world's indexes built with ``build-index``, its pairs plus a dense
+    SARS-CoV-2 tiling through ``run -A`` on device and on host seeding.
+    The realistic part: the world's pairs plus two novel viruses' 9,000
+    pairs through ``run`` and then ``run -A`` on the same prefix (the
+    journal leaves the assembly stage alone), its host steps timed and
+    its launches counted. Every contigs FASTA, r2c LSAM, report and
+    LSAM.id equals the JAX CLI's record (``torch_asm_records.json``).
+    Returns the phase's seconds."""
+    import tempfile
+
+    from megapath_tpu_torch.pipeline import assembly as asm_mod
+    from megapath_tpu_torch.pipeline import megapath as pipe_mod
+
+    t_phase = time.perf_counter()
+    want = _asm_records()
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if asm_digests(world) != {k: want[k] for k in ("world_input_sha256",
+                                                     "realistic_input_sha256")}:
+        raise AssertionError("[asm] the inputs differ from the fixture's: numpy's generator "
+                             "drifted, this is not a port fault")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_asm_files(world, d)
+        build_s = sum(_cli(argv, dev)[0] for argv in world_build_argvs(d))
+        for device_seeding, key in ((True, "device_seeding"), (False, "host_seeding")):
+            zero_counts()
+            dt, err = _cli(asm_run_argv(d, str(d / key), device_seeding), dev)
+            counts = read_counts()
+            _require_launches("asm world", counts, ("dp_full", "mmp_seed", "locate")
+                              if device_seeding else ("dp_full",))
+            got = asm_record(str(d / key))
+            bad = _asm_diff(got, want["world"][key])
+            if bad:
+                raise AssertionError(f"[asm] world {key}: differs from the JAX CLI's record: "
+                                     f"{bad}")
+            print(f"[asm] world + SARS-CoV-2 tiling, {key}: build-index {build_s:.3f} s; run -A "
+                  f"{dt:.3f} s (assembly stage {_stage_seconds(err)['assembly']:.3f} s); "
+                  f"{got['contigs_fa'].count('>')} contigs, {got['r2c_lines']} r2c lines; "
+                  f"contigs, r2c, reports and both LSAM.id equal the JAX CLI's; launches "
+                  f"{counts} [{smi}]")
+
+        prefix = str(d / "real" / "run")
+        run_s, _ = _cli(asm_run_argv(d, prefix, True, reads=d / "real", assembly=False), dev)
+        acc, seen = {}, {}
+        zero_counts()
+        with contextlib.ExitStack() as st:
+            st.enter_context(_bbnorm_probe(asm_mod, seen))
+            for owner, name, key in (
+                    (pipe_mod, "extract_viral_and_unmapped", "extract"),
+                    (asm_mod, "normalize_pairs", "bbnorm"),
+                    (asm_mod, "assemble_multik", "assemble"),
+                    (asm_mod, "build_fm_index", "contig index"),
+                    (AlignEngine, "align_pairs", "align back")):
+                st.enter_context(_host_timed(acc, owner, name, key))
+            asm_s, err = _cli(asm_run_argv(d, prefix, True, reads=d / "real"), dev)
+        counts = read_counts()
+        _require_launches("asm realistic", counts, ("dp_full", "mmp_seed", "locate"))
+        got = asm_record(prefix)
+    genomes, _ = asm_realistic_workload()
+    stats = asm_stats(got["contigs_fa"], genomes, seen["extracted"], seen["kept"])
+    w = want["realistic"]
+    bad = _asm_diff(got, w) + ([("stats", stats, w["stats"])] if stats != w["stats"] else [])
+    if bad:
+        raise AssertionError(f"[asm] realistic: differs from the JAX CLI's record: {bad}")
+    stage = _stage_seconds(err)["assembly"]
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in acc.items())
+    print(f"[asm] realistic (the world's 88 pairs + {len(genomes)} novel viruses' "
+          f"{sum(n for _, _, n in ASM_VIRUSES)} pairs, 2 x {ASM_READ_LEN} bp, device "
+          f"seeding): run {run_s:.3f} s; run -A {asm_s:.3f} s, the assembly stage "
+          f"{stage:.3f} s = {split}, the rest (the FASTQ and LSAM re-read, the outputs) "
+          f"{stage - sum(acc.values()):.3f} s [{smi}]")
+    rec = ", ".join(f"{k} {v:.4f}" for k, v in stats["recovery"].items())
+    print(f"[asm] realistic: bbnorm kept {stats['kept_pairs']} of {stats['extracted_pairs']} "
+          f"pairs; {stats['contigs']} contigs, N50 {stats['n50']}, {stats['total_bp']} bp; "
+          f"recovery {rec}; {got['r2c_lines']} r2c lines; contigs, r2c, reports and both "
+          f"LSAM.id equal the JAX CLI's; the contig engine's launches {counts} [{smi}]")
+    secs = time.perf_counter() - t_phase
+    print(f"[asm] the assembly phase took {secs:.1f} s")
+    return secs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2359,8 +2636,10 @@ def main() -> int:
     del large
     shard_s = phase_shard(dev, smi, lat)
     db_s = phase_db(dev, smi)
+    asm_s = phase_asm(dev, smi)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
-          f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s) [{smi}]")
+          f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
+          f"assembly phase {asm_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

@@ -15,7 +15,11 @@ given, it never runs on the CPU by itself):
   run           gzip FASTQ (C++ reader) -> bbduk -> human filter ->
                 (ribosome filter) -> NT shards -> SPIKE -> reassign ->
                 Kraken reports; ``-b`` adds the per-shard BAMs and the
-                merged, sorted PREFIX.nt.bam
+                merged, sorted PREFIX.nt.bam; ``-A`` adds the assembly
+                stage: the viral and unmapped pairs through bbnorm and the
+                multi-k assembler (or ``--megahit-bin``) on the host, the
+                contigs indexed and the reads aligned back on the device
+                -> PREFIX.contigs.fa, PREFIX.r2c.lsam
   report        LSAM.id -> Kraken-style report (genKrakenReport)
 
 Stream tools (the reference's cc/ toolchain and its Perl glue):
@@ -25,9 +29,9 @@ bbduk. Evaluation tools: count-table, m8-cov, maplen-hist. All run on
 the host.
 
 What the port has not ported parses and then raises NotImplementedError
-naming the ROADMAP item: ``run -A/--assembly``, ``--megahit-bin`` and
-``--protein-db`` (A9), ``run --devices`` and ``--spmd`` (A10), and the
-``amplicon`` subcommand (A9c).
+naming the ROADMAP item: ``run --protein-db`` (the protein remap, A9b),
+``run --devices`` and ``--spmd`` (A10), and the ``amplicon`` subcommand
+(A9c).
 """
 from __future__ import annotations
 
@@ -131,10 +135,9 @@ def _cmd_build_db(args) -> int:
 
 
 def _cmd_run(args) -> int:
-    if args.assembly or args.megahit_bin is not None or args.protein_db is not None:
+    if args.protein_db is not None:
         raise NotImplementedError(
-            "run -A/--assembly, --megahit-bin, --protein-db: assembly and the "
-            "protein remap are ROADMAP A9"
+            "run --protein-db: the protein remap (stage 4.1) is ROADMAP A9b"
         )
     if args.devices:
         raise NotImplementedError(
@@ -169,7 +172,8 @@ def _cmd_run(args) -> int:
         nt_shards, db, hg_shard=hg, adapters=adapters, config=cfg,
         ribo_shard=ribo, device=dev,
     )
-    res = pipe.run_files(args.r1, args.r2, args.prefix)
+    res = pipe.run_files(args.r1, args.r2, args.prefix,
+                         assembly=args.assembly, megahit_bin=args.megahit_bin)
     print(
         f"[run] pairs in={res.n_input_pairs} preprocessed={res.n_after_preprocess} "
         f"non-human={res.n_after_human} non-ribo={res.n_after_ribo} "
@@ -454,7 +458,8 @@ def main(argv=None) -> int:
                    help="torch device that builds the indexes (cuda or cpu)")
     b.set_defaults(fn=_cmd_build_db)
 
-    r = sub.add_parser("run", help="run the detection pipeline")
+    r = sub.add_parser("run", help="run the detection pipeline (-A: the assembly "
+                                   "stage; --protein-db, --devices, --spmd refused)")
     r.add_argument("-1", dest="r1", required=True)
     r.add_argument("-2", dest="r2", required=True)
     r.add_argument("-p", dest="prefix", default="megapath")
@@ -475,10 +480,10 @@ def main(argv=None) -> int:
                    help="SILVA-style 16S index prefix (-S stage, "
                         "runMegaPath.sh:155-169)")
     r.add_argument("-A", "--assembly", action="store_true",
-                   help="assembly + protein remap stage (ROADMAP A9: refused)")
-    r.add_argument("--megahit-bin", default=None, help="ROADMAP A9: refused")
+                   help="assembly + protein remap stage (runMegaPath.sh:267-330)")
+    r.add_argument("--megahit-bin", default=None)
     r.add_argument("--protein-db", default=None,
-                   help="protein FASTA for the stage-4.1 blastx (ROADMAP A9: refused)")
+                   help="protein FASTA for the stage-4.1 blastx (ROADMAP A9b: refused)")
     r.add_argument("--devices", type=int, default=0,
                    help="distribute NT shard engines over N devices "
                         "(ROADMAP A10: refused unless 0)")

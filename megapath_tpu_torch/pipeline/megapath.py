@@ -16,11 +16,17 @@ LSAM lines are byte-identical to the JAX pipeline's
 sink to ``run_files``: per-shard sorted BAMs and the merged
 ``PREFIX.nt.bam`` (soap4 -b + samtools, runMegaPath.sh:199-216), whose
 content equals the JAX pipeline's (``tests/test_torch_cli.py``).
+``run_files(assembly=True)`` adds stage 4 (runMegaPath.sh -A): the viral
+and unmapped pairs through bbnorm and the multi-k assembler (or
+``megahit_bin``) on the host, the contigs indexed and the reads aligned
+back on the pipeline's device, ``PREFIX.contigs.fa`` and
+``PREFIX.r2c.lsam`` byte-identical to the JAX pipeline's
+(``tests/test_torch_cli_asm.py``).
 
 Left out, and refused with NotImplementedError naming the ROADMAP item
-that ports them: assembly and the protein remap (A9), the one-program
-SPMD backend (``PipelineConfig.spmd``) and multi-device shard placement
-(``devices=``, A10).
+that ports them: the protein remap (stage 4.1, ``protein_db=``, A9b), the
+one-program SPMD backend (``PipelineConfig.spmd``) and multi-device shard
+placement (``devices=``, A10).
 """
 
 from __future__ import annotations
@@ -47,10 +53,11 @@ from megapath_tpu_torch.filters.spike import spike_read_filter
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import PackedReference, pack_reads
 from megapath_tpu_torch.io.bam import merge_shard_bams, sort_sam_lines, write_bam
-from megapath_tpu_torch.io.fastq import FastqRecord, trim_readno
-from megapath_tpu_torch.io.lsam import LsamRecord
+from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno
+from megapath_tpu_torch.io.lsam import LsamRecord, read_lsam
 from megapath_tpu_torch.io.sam import hits_to_sam, sam_header
 from megapath_tpu_torch.io.stream import stream_read_pairs
+from megapath_tpu_torch.pipeline.assembly import assembly_path, extract_viral_and_unmapped
 from megapath_tpu_torch.taxonomy.report import KrakenReport
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB, get_correct_acc, remove_version
 from megapath_tpu_torch.utils.timing import StageTimer
@@ -244,10 +251,9 @@ class MegaPathPipeline:
         align-state snapshot give stage-level resume like the
         reference's gates (runMegaPath.sh:109-246).
         """
-        if assembly or megahit_bin is not None or protein_db is not None:
+        if protein_db is not None:
             raise NotImplementedError(
-                "run_files(assembly=, megahit_bin=, protein_db=): assembly and "
-                "the protein remap are ROADMAP A9"
+                "run_files(protein_db=): the protein remap (stage 4.1) is ROADMAP A9b"
             )
         cfg = self.cfg
         bs = batch_size or cfg.batch_size
@@ -529,6 +535,13 @@ class MegaPathPipeline:
                     fo.write(line)
                     fr.write(ra_obj.rewrite_line(line) + "\n")
 
+        # ---- stage 4 (-A): assembly --------------------------------------
+        if assembly and not os.path.exists(out_prefix + ".assembly.done"):
+            with timer.stage("assembly"):
+                self._assembly_stage(r1_path, r2_path, out_prefix, megahit_bin)
+            with open(out_prefix + ".assembly.done", "w") as f:
+                f.write("ok\n")
+
         with open(out_prefix + ".done", "w") as f:
             f.write("ok\n")
         return PipelineResult(
@@ -542,6 +555,29 @@ class MegaPathPipeline:
             spike_removed=len(banned),
             n_after_ribo=int(counters[3]),
         )
+
+    def _assembly_stage(
+        self, r1_path, r2_path, out_prefix: str, megahit_bin: Optional[str]
+    ) -> None:
+        """Stage 4 (-A, runMegaPath.sh:267-299): extract viral + unmapped
+        pairs from the filtered LSAM, bbnorm + assemble on the host, map
+        the reads back to the contigs on the pipeline's device."""
+        lsam_id = list(read_lsam(out_prefix + ".nt.lsam.id"))
+        recs1 = list(read_fastx(r1_path))
+        recs2 = list(read_fastx(r2_path))
+        for r in recs1 + recs2:
+            r.name = trim_readno(r.name)
+        v1, v2 = extract_viral_and_unmapped(
+            lsam_id, recs1, recs2, threshold=self.cfg.nt_cutoff
+        )
+        res = assembly_path(v1, v2, megahit_bin=megahit_bin, device=self.device,
+                            device_seeding=self.cfg.device_seeding)
+        with open(out_prefix + ".contigs.fa", "w") as f:
+            for i, c in enumerate(res.contigs):
+                f.write(f">ctg{i}\n{c}\n")
+        with open(out_prefix + ".r2c.lsam", "w") as f:
+            for rec in res.read2contig:
+                f.write(rec.to_line() + "\n")
 
     def _write_batch_sam(
         self, bdir: str, bi: int, per_shard, names,

@@ -271,7 +271,8 @@ def test_cli_records_belong_to_the_workloads():
 # what the port refuses
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("flags,item", [
-    (["-A"], "A9"), (["--assembly"], "A9"), (["--megahit-bin", "megahit"], "A9"),
+    (["-A", "--protein-db", "nr.fa"], "A9"), (["--assembly", "--protein-db", "nr.fa"], "A9"),
+    (["--megahit-bin", "megahit", "--protein-db", "nr.fa"], "A9"),
     (["--protein-db", "nr.fa"], "A9"), (["--devices", "2"], "A10"), (["--spmd"], "A10"),
 ])
 def test_run_refuses_unported_flags(tmp_path, flags, item):

@@ -63,6 +63,9 @@ import megapath_tpu_torch.classify.extras
 import megapath_tpu_torch.io.sam2cfq
 import megapath_tpu_torch.utils.accuracy
 import megapath_tpu_torch.index.dbtools
+import megapath_tpu_torch.filters.bbnorm
+import megapath_tpu_torch.pipeline.multik
+import megapath_tpu_torch.pipeline.assembly
 import chip_smoke
 
 # the subcommands import their modules when they run: run each host tool
@@ -89,6 +92,35 @@ with tempfile.TemporaryDirectory() as d:
             assert cli.main(argv) == 0, argv
     finally:
         sys.stdout = out
+
+# run -A on the CPU: a dense tiling of the world's SARS-CoV-2 genome
+# against an NT index of HCoV-229E alone, so every pair is unmapped and
+# goes through bbnorm, the multi-k assembler and the contig engine; one
+# torch thread, as tests/torch_cpu.py pins the test processes it runs beside
+import contextlib
+import torch
+import chip_smoke as cs
+torch.set_num_threads(1)
+(_, _, g), hcov = cs.world_workload(n=0)["nt"][1]
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()):
+    cs.write_fasta(os.path.join(d, "nt.fa"), [hcov])
+    os.mkdir(os.path.join(d, "nt"))
+    assert cli.main(["build-index", os.path.join(d, "nt.fa"), os.path.join(d, "nt", "nt"),
+                     "--sa-interval", "4", "--lut-k", "6", "--device", "cpu"]) == 0
+    for end, fn in ((1, lambda p: g[p : p + 80]),
+                    (2, lambda p: cs._COMP[g[p + 220 : p + 300][::-1]])):
+        with open(os.path.join(d, f"r{end}.fq"), "w") as f:
+            for i, p in enumerate(range(1000, 1400, 10)):
+                f.write(f"@v{i}/{end}\n{cs._text(fn(p))}\n+\n{'I' * 80}\n")
+    prefix = os.path.join(d, "asm")
+    assert cli.main(["run", "-1", os.path.join(d, "r1.fq"), "-2", os.path.join(d, "r2.fq"),
+                     "-p", prefix, "--nt-index", os.path.join(d, "nt", "shard0"),
+                     "--nodes", "tests/fixtures/nodes.dmp", "--names", "tests/fixtures/names.dmp",
+                     "--acc2tid", "tests/fixtures/acc2tid.map", "-L", "80", "--skip-preprocess",
+                     "-A", "--device", "cpu"]) == 0
+    assert open(prefix + ".contigs.fa").read().startswith(">ctg0")
+    assert open(prefix + ".r2c.lsam").read()
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("BAD", bad)

@@ -336,7 +336,8 @@ def test_left_out_features_raise(world, kw, item):
 
 
 def test_run_files_assembly_raises(world, tmp_path):
+    """The assembly stage is ported; its protein remap (stage 4.1) is not."""
     pipe = MegaPathPipeline(world["nt"], world["taxdb"], device=CPU)
     with pytest.raises(NotImplementedError, match="A9"):
         pipe.run_files(str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
-                       str(tmp_path / "x"), assembly=True)
+                       str(tmp_path / "x"), assembly=True, protein_db=object())
