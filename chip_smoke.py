@@ -44,7 +44,12 @@ exits non-zero and prints no result line):
                walkers, timed also per iteration of the longest walker;
                ``locate`` on every SA row the default walk's seeds expand
                to, beside its chain floor (its longest chain of dependent
-               loads at the L2 latency).
+               loads at the L2 latency); ``sw_subst`` (the protein path's
+               substitution-matrix DP) at a 10 kbp contig's blastx batch
+               (3,072 x 3,334 x 320, timed beside its bound) and on the
+               corners: lengths 0 and 1, R or W of 1, ties, codes past the
+               table, another table, gap_open > gap_extend, odd B, W across
+               every stripe and 512-row tile boundary and W = 5,000.
 4. golden   -- the port engine on ``cuda`` over the soap4 fixture, on
                host and on device seeding: 0/200 read-end mismatches
                against the soap4 golden on each.
@@ -139,14 +144,29 @@ exits non-zero and prints no result line):
                engine's launches (the DP, the walk and the locate). Every
                contigs FASTA, r2c LSAM, report and LSAM.id equals the JAX
                CLI's record (``tests/fixtures/torch_asm_records.json``).
+               The realistic ``run -A`` takes ``--protein-db`` with 300
+               random proteins of 100-300 aa, four of them homologs of the
+               viruses' frame translations: the protein remap's seeding,
+               DP (its launches and batch shape), host tracebacks and tail
+               timed, its three files equal to the JAX CLI's record
+               (``tests/fixtures/torch_protein_records.json``).
+15. protein -- the protein path (stage 4.1): the ac-diamond fixture
+               (``tests/fixtures/protein``) through ``blastx_m8`` on the
+               card, its m8 lines equal to the JAX record and passing
+               ``tests/test_protein.py``'s golden checks; the world part
+               (phase 14's world files, a protein DB of SARS-CoV-2 and
+               HCoV-229E homologs and a decoy) through ``run -A
+               --protein-db`` on device seeding, every output equal to the
+               JAX CLI's record; ``run --protein-db`` without ``-A``
+               writes exactly the files ``run`` writes.
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
 walk and the locate). The line before the last lists the kernels as JSON,
 one entry for each TPU kernel the port replaces (``mp_dp_full`` serves
 both layouts of the full DP, so ``dp_full_rows`` carries ``dp_full``'s
-launches and times); the last line is
-``{"ok": true, "device": {...}}``. The script imports torch, numpy and
+launches and times; ``sw_subst``'s launches are phases 14 and 15's); the
+last line is ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
 
@@ -179,21 +199,31 @@ from megapath_tpu_torch.align import seeding_dev  # noqa: E402
 from megapath_tpu_torch.align.engine import AlignEngine  # noqa: E402
 from megapath_tpu_torch.align.output import best_per_seq, format_comment  # noqa: E402
 from megapath_tpu_torch.align.params import AlignParams  # noqa: E402
+from megapath_tpu_torch.classify.protein import (  # noqa: E402
+    AA,
+    BLOSUM62,
+    ProteinDB,
+    blastx_m8,
+    translate_frames,
+)
 from megapath_tpu_torch.index.fm import build_fm_index  # noqa: E402
 from megapath_tpu_torch.index.pack import (  # noqa: E402
     PackedReference,
+    encode_seq,
     pack_fasta,
     pack_fasta_file,
     pack_reads,
 )
 from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno  # noqa: E402
 from megapath_tpu_torch import native  # noqa: E402
-from megapath_tpu_torch.ops import _build, dp_cuda, seed_cuda  # noqa: E402
+from megapath_tpu_torch.ops import _build, dp_cuda, protein_cuda, seed_cuda  # noqa: E402
 from megapath_tpu_torch.ops.dp import (  # noqa: E402
     OFF_TEXT_CODE,
+    PROTEIN_PARAMS,
     DPParams,
     sw_align,
     sw_align_full,
+    sw_align_substmat,
 )
 from megapath_tpu_torch.pipeline.megapath import MegaPathPipeline, PipelineConfig  # noqa: E402
 from megapath_tpu_torch.pipeline.multik import genome_recovery, n50  # noqa: E402
@@ -212,6 +242,8 @@ KERNELS = {
                "megapath_tpu/align/seeding_jax.py:1031"),
     "dp_full_rows": ("megapath_tpu_torch/csrc/dp_full.cu",
                      "megapath_tpu/ops/dp_pallas.py:111"),
+    "sw_subst": ("megapath_tpu_torch/csrc/sw_subst.cu",
+                 "megapath_tpu/ops/dp.py:146"),
 }
 # a TPU kernel whose contract another port kernel serves, with that
 # kernel's launches and times: the row-major _dp_full_kernel has the
@@ -241,6 +273,11 @@ CASCADE = FIX / "cascade"
 # 16x2 form: one cell pair in 6).
 HBM_BYTES_PER_S = 3.35e12
 DP_CELLS_PER_S = 64 * 132 * 1.98e9 / 3
+# the substitution DP's cell rate: the same lanes over the 8 int32
+# lane-instructions a cell needs at least (F an add and an add-max, the
+# table load, H without E an add-max-relu, H a max, E an add and an
+# add-max, the running best a max)
+SUBST_CELLS_PER_S = 64 * 132 * 1.98e9 / 8
 # what a rank reads of an occ row (4 checkpoints | 8 BWT words; the walk
 # never loads the 4 mark words), and what a locate's mark test needs of it
 OCC_ROW_BYTES = 48
@@ -372,6 +409,40 @@ def pair_lens_batch(rng: np.random.Generator, R: int, W: int, C: int = 64):
     return reads, refs, rl, wl
 
 
+def protein_batch(rng: np.random.Generator, C: int, R: int, W: int, hi: int = 20,
+                  per_query: int = 64):
+    """A blastx-shaped batch: queries of ``per_query`` candidates each share
+    one frame (codes below ``hi``, stops and X among them, its length
+    drawn from [R/2, R]); each candidate's window (length drawn from [W/4,
+    W], the rest padded with X) holds random residues and, in every other
+    candidate, a homolog of a stretch of the frame with ~10% substitutions,
+    an insertion and a deletion."""
+    reads = rng.integers(0, hi, (C, R)).astype(np.uint8)
+    refs = np.full((C, W), 22, np.uint8)
+    rl = np.zeros(C, np.int32)
+    wl = rng.integers(max(W // 4, 1), W + 1, C).astype(np.int32)
+    for q0 in range(0, C, per_query):
+        n = int(rng.integers(max(R // 2, 1), R + 1))
+        frame = rng.integers(0, hi, R).astype(np.uint8)
+        frame[rng.random(R) < 0.03] = 23  # stops
+        reads[q0 : q0 + per_query] = frame
+        rl[q0 : q0 + per_query] = n
+    for b in range(C):
+        w = int(wl[b])
+        refs[b, :w] = rng.integers(0, min(hi, 20), w)
+        if b % 2 == 0 and w >= 24 and rl[b] >= 24:
+            k = min(w - 6, int(rl[b]) - 6)
+            at = int(rng.integers(0, int(rl[b]) - k + 1))
+            homolog = reads[b, at : at + k].copy()
+            sub = rng.random(k) < 0.1
+            homolog[sub] = rng.integers(0, 20, int(sub.sum()))
+            cut = k // 3
+            homolog = np.concatenate([homolog[:cut], rng.integers(0, 20, 3).astype(np.uint8),
+                                      homolog[cut : 2 * cut], homolog[2 * cut + 3 :]])
+            refs[b, 3 : 3 + len(homolog)] = homolog[: w - 3]
+    return reads, refs, rl, wl
+
+
 def dp_work(read_lens, ref_lens, R: int, W: int, res=None) -> tuple:
     """(cells, bytes) a DP launch must cover: the forward cells
     sum(rl * wl) (lengths clamped to R and W) and, given the full
@@ -415,11 +486,11 @@ def chain_floor(stats: dict, latency_ns: float) -> tuple:
     return loads, loads * latency_ns * 1e-6
 
 
-def bound(cells: int, nbytes: int) -> tuple:
+def bound(cells: int, nbytes: int, cells_per_s: float = DP_CELLS_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes at the memory rate
     and the DP cells at the cell rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = cells / DP_CELLS_PER_S * 1e3
+    by_ops = cells / cells_per_s * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
@@ -1201,28 +1272,186 @@ def asm_world_records(main, d: Path, extra=()) -> dict:
     return out
 
 
-def asm_realistic_record(main, assembly_module, d: Path, extra=()) -> dict:
+def asm_realistic_record(main, assembly_module, d: Path, extra=(), protein: bool = False
+                         ) -> dict:
     """The realistic part through ``main`` in ``d`` (the world's indexes
     built): ``run`` on device seeding, then ``run -A`` on the same prefix,
     which the journal reduces to the assembly stage; ``asm_record`` and
-    ``asm_stats``."""
+    ``asm_stats``. With ``protein``, the ``run -A`` takes ``--protein-db``
+    with the realistic protein DB (``write_protein_files``) and the record
+    gains ``protein_record``."""
     prefix = str(d / "real" / "run")
     seen: dict = {}
     for assembly in (False, True):
         with _bbnorm_probe(assembly_module, seen):
             argv = asm_run_argv(d, prefix, True, reads=d / "real", assembly=assembly)
+            if assembly and protein:
+                argv += ["--protein-db", str(d / "real" / "prot.fa")]
             if main([*argv, *extra]) != 0:
                 raise AssertionError("[asm] realistic run exited non-zero")
     rec = asm_record(prefix)
     genomes, _ = asm_realistic_workload()
-    return {**rec, "stats": asm_stats(rec["contigs_fa"], genomes, seen["extracted"],
-                                      seen["kept"])}
+    rec["stats"] = asm_stats(rec["contigs_fa"], genomes, seen["extracted"], seen["kept"])
+    return {**rec, **(protein_record(prefix) if protein else {})}
 
 
 def asm_digests(world) -> dict:
     """The sha256 of the world part's and the realistic part's pairs."""
     return {"world_input_sha256": pairs_digest(asm_world_pairs(world)),
             "realistic_input_sha256": pairs_digest(asm_realistic_workload()[1])}
+
+
+# ----------------------------------------------------------------------
+# the protein path's files (phases 14 and 15; tests/test_torch_cli_protein.py
+# and tests/fixtures/make_torch_protein_records.py use them with either CLI)
+# ----------------------------------------------------------------------
+AA20 = AA[:20]  # the standard residues
+# the realistic protein DB: 300 proteins of 100-300 aa, four of them planted
+# from the novel viruses' frame translations (tiles of 250 aa: aa start,
+# frame), named by accessions of tests/fixtures/acc2tid.map
+PROT_REAL_SEED = 31
+PROT_REAL_DECOYS = 296
+PROT_REAL_PLANTS = (("NC_045512", "novel_virus_A", 1000, 1),
+                    ("NC_002645", "novel_virus_A", 6000, -2),
+                    ("NC_0009130x1NC_003197", "novel_virus_B", 200, 3),
+                    ("AE005174", "novel_virus_B", 900, -1))
+PROT_PLANT_AA = 250
+PROT_WORLD_SEED = 37
+# the ac-diamond fixture of tests/test_protein.py
+PROT_ACD = FIX / "protein"
+
+
+def plant_protein(rng: np.random.Generator, codes: np.ndarray, start: int, frame: int,
+                  n_aa: int, deletion: bool = True) -> str:
+    """``n_aa`` residues of ``codes``' frame ``frame`` translation from aa
+    ``start``, stops replaced by random standard residues, ~5% of the
+    residues substituted and, with ``deletion``, 3 residues deleted from
+    its middle half: a homolog the contigs' or reads' frame must find."""
+    aa = np.array([AA[c] for c in dict(translate_frames(codes))[frame][start:start + n_aa]])
+    fresh = lambda k: rng.choice(list(AA20), k)  # noqa: E731
+    stop = aa == "*"
+    aa[stop] = fresh(int(stop.sum()))
+    hit = np.flatnonzero(rng.random(len(aa)) < 0.05)
+    aa[hit] = fresh(len(hit))
+    if deletion:
+        at = int(rng.integers(len(aa) // 4, 3 * len(aa) // 4))
+        aa = np.concatenate([aa[:at], aa[at + 3:]])
+    return "".join(aa)
+
+
+def random_protein(rng: np.random.Generator, n: int) -> str:
+    return "".join(rng.choice(list(AA20), n))
+
+
+def protein_realistic_db(genomes: dict) -> list:
+    """The realistic part's protein FASTA as (name, residues): decoys of
+    100-300 random standard residues and, among them, ``PROT_REAL_PLANTS``
+    drawn from ``genomes`` (``asm_realistic_workload``'s)."""
+    rng = np.random.default_rng(PROT_REAL_SEED)
+    out = [(f"decoy{i:03d}", random_protein(rng, int(rng.integers(100, 301))))
+           for i in range(PROT_REAL_DECOYS)]
+    for k, (name, virus, start, frame) in enumerate(PROT_REAL_PLANTS):
+        codes = encode_seq(genomes[virus])
+        out.insert(37 + 73 * k, (name, plant_protein(rng, codes, start, frame, PROT_PLANT_AA)))
+    return out
+
+
+def protein_world_db(world) -> list:
+    """The world part's protein FASTA as (name, residues): a 150 aa
+    homolog of the SARS-CoV-2 region the tiling covers (``ASM_TILE``), a
+    100 aa homolog of the HCoV-229E region its first pair's first read
+    covers, and a random decoy whose name joins two accessions by 0x1."""
+    rng = np.random.default_rng(PROT_WORLD_SEED)
+    genome = {n: c for shard in world["nt"] for n, _, c in shard}
+    sars, hcov = genome["NC_045512.1"], genome["NC_002645.1"]
+    read = encode_seq(next(p[1] for p in world["pairs"] if p[0] == "NC_002645.1_0"))
+    L = len(read)
+    at = int(np.argmax([(hcov[p : p + L] == read).sum() for p in range(len(hcov) - L + 1)]))
+    return [("NC_045512", plant_protein(rng, sars, ASM_TILE.start // 3 + 20, 1, 150)),
+            ("NC_002645", plant_protein(rng, hcov, -(-at // 3), 1, 80, deletion=False)),
+            ("NC_0009130x1NC_003197", random_protein(rng, 120))]
+
+
+def write_protein_fasta(path: Path, db) -> None:
+    with open(path, "w") as f:
+        for name, seq in db:
+            f.write(f">{name}\n{seq}\n")
+
+
+def write_protein_files(world, d: Path) -> None:
+    """The protein DBs under ``d`` (``write_asm_files``' directory): the
+    world part's as ``prot.fa``, the realistic part's as ``real/prot.fa``."""
+    write_protein_fasta(d / "prot.fa", protein_world_db(world))
+    write_protein_fasta(d / "real" / "prot.fa",
+                        protein_realistic_db(asm_realistic_workload()[0]))
+
+
+PROTEIN_FILES = (".nr.lsam.id", ".nt.unmap.r2g.lsam.id", ".nr.report")
+
+
+def protein_record(prefix: str) -> dict:
+    """What the protein gates compare (either package's ``run -A
+    --protein-db``): the NR LSAM.id and the NR report as text, the r2g
+    LSAM.id's sha256 and line count."""
+    r2g = Path(prefix + ".nt.unmap.r2g.lsam.id").read_bytes()
+    return {"nr_lsam_id": Path(prefix + ".nr.lsam.id").read_text(),
+            "r2g_sha256": hashlib.sha256(r2g).hexdigest(), "r2g_lines": r2g.count(b"\n"),
+            "nr_report": Path(prefix + ".nr.report").read_text()}
+
+
+def protein_world_argv(d: Path, prefix: str, assembly: bool = True) -> list:
+    """``run -A --protein-db`` of the world part (``asm_run_argv`` on device
+    seeding, the world protein DB); without ``assembly``, the same run
+    without ``-A``."""
+    return asm_run_argv(d, prefix, True, assembly=assembly) + ["--protein-db",
+                                                                str(d / "prot.fa")]
+
+
+def protein_world_record(main, d: Path, extra=()) -> dict:
+    """The world part through ``main`` (either package's CLI) in ``d``
+    (``write_asm_files`` and ``write_protein_files`` written, the world's
+    indexes built): ``run -A --protein-db`` on device seeding;
+    ``asm_record`` and ``protein_record`` of it."""
+    prefix = str(d / "protein_world")
+    if main([*protein_world_argv(d, prefix), *extra]) != 0:
+        raise AssertionError("[protein] run -A --protein-db exited non-zero")
+    return {**asm_record(prefix), **protein_record(prefix)}
+
+
+def protein_digests(world) -> dict:
+    """The sha256 of the protein DBs' FASTA text and of the ac-diamond
+    fixture's files."""
+    def sha(db) -> str:
+        return hashlib.sha256("".join(f">{n}\n{s}\n" for n, s in db).encode()).hexdigest()
+
+    return {"world_db_sha256": sha(protein_world_db(world)),
+            "realistic_db_sha256": sha(protein_realistic_db(asm_realistic_workload()[0])),
+            "acd_sha256": {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                           for p in sorted(PROT_ACD.glob("*"))}}
+
+
+def read_fasta_pairs(path) -> list:
+    """(first word of the name, sequence) of each record of a FASTA, as
+    ``tests/test_protein.py`` reads the ac-diamond fixture."""
+    out, name, seq = [], None, []
+    for line in open(path):
+        line = line.strip()
+        if line.startswith(">"):
+            if name:
+                out.append((name, "".join(seq)))
+            name, seq = line[1:].split()[0], []
+        else:
+            seq.append(line)
+    if name:
+        out.append((name, "".join(seq)))
+    return out
+
+
+def acd_inputs():
+    """The ac-diamond fixture: (protein DB entries, DNA queries as codes)."""
+    prots = read_fasta_pairs(PROT_ACD / "prot.fa")
+    contigs = read_fasta_pairs(PROT_ACD / "contigs.fa")
+    return prots, [(n, encode_seq(s)) for n, s in contigs]
 
 
 # ----------------------------------------------------------------------
@@ -1543,6 +1772,82 @@ def kernels_dp(dev: torch.device, smi: str) -> dict:
     return {"dp_full": full, "dp_fwd": fwd}
 
 
+def subst_work(read_lens, ref_lens, R: int, W: int, n_codes: int) -> tuple:
+    """(cells, bytes) the substitution DP must cover: the useful cells
+    sum(read_len * ref_len) (lengths clamped to R and W), each input read
+    once (the reads' and windows' codes up to their lengths, both lengths
+    and the table) and each output written once (3 int32)."""
+    rl = np.clip(np.asarray(read_lens, np.int64), 0, R)
+    wl = np.clip(np.asarray(ref_lens, np.int64), 0, W)
+    return int((rl * wl).sum()), int(rl.sum() + wl.sum()) + 20 * len(rl) + 4 * n_codes**2
+
+
+def kernels_subst(dev: torch.device, smi: str) -> dict:
+    """sw_subst (``csrc/sw_subst.cu``) against the plain
+    ``sw_align_substmat`` on the card, every output equal (tolerance 0): at
+    the main shape, a 10 kbp contig's 48 frames x 64 candidates, timed
+    beside its bound; and on the contract's corners: zero and one lengths,
+    R or W of 1, ties of both orders, codes >= n_codes, another table of
+    fewer codes and gap costs with gap_open > gap_extend, an odd B, W
+    across every stripe and tile boundary and one W of several
+    thousand."""
+    rng = np.random.default_rng(20261017)
+    lib = _build.load()
+    if lib.mp_sw_subst_tile_rows() != protein_cuda.TILE_ROWS:
+        raise AssertionError(f"[kernels] the library's tile is {lib.mp_sw_subst_tile_rows()} "
+                             f"rows, protein_cuda.TILE_ROWS is {protein_cuda.TILE_ROWS}")
+    blosum = torch.from_numpy(BLOSUM62).to(dev)
+    other = np.random.default_rng(3).integers(-6, 7, (7, 7)).astype(np.int32)
+    other = torch.from_numpy((other + other.T) // 2).to(dev)
+    prot = PROTEIN_PARAMS
+    lens01 = protein_batch(rng, 64, 96, 120)
+    lens01[2][0::4], lens01[2][1::4] = 0, 1  # read lengths 0 and 1
+    lens01[3][2::8], lens01[3][3::8] = 0, 1  # window lengths 0 and 1
+    cases = [
+        ("main", protein_batch(rng, 3072, 3334, 320), blosum, prot),
+        ("lens_0_1", lens01, blosum, prot),
+        ("edges", edge_batch(rng, 40, 96, C=32), blosum, prot),
+        ("r1", protein_batch(rng, 64, 1, 96), blosum, prot),
+        ("w1", protein_batch(rng, 64, 96, 1), blosum, prot),
+        ("ties", tie_batch(rng, 120, 200), blosum, prot),
+        ("codes_past_24", protein_batch(rng, 128, 150, 200, hi=256), blosum, prot),
+        ("other_table", protein_batch(rng, 128, 150, 200, hi=9), other, prot),
+        ("go_above_ge", protein_batch(rng, 128, 150, 200), blosum, DPParams(0, 0, -1, -3)),
+        ("odd_b", protein_batch(rng, 1001, 300, 250), blosum, prot),
+        ("b1", protein_batch(rng, 1, 300, 250), blosum, prot),
+    ] + [(f"w{w}", protein_batch(rng, 96, 120, w), blosum, prot)
+         for w in (31, 32, 33, 64, 65, 511, 512, 513, 1024, 1025, 1537)] + [
+        ("w5000", protein_batch(rng, 64, 300, 5000, per_query=8), blosum, prot)]
+    out = {"max_abs_err": 0, "library_ms": None}
+    for tag, batch, subst, params in cases:
+        t = [torch.from_numpy(a).to(dev) for a in batch]
+        got = protein_cuda.sw_align_substmat_cuda(*t, subst, params)
+        out["max_abs_err"] = max(out["max_abs_err"], _hold(
+            f"sw_subst {tag}", got, sw_align_substmat(*t, subst, params), FWD_FIELDS))
+        C, R = batch[0].shape
+        W = batch[1].shape[1]
+        line = (f"[kernels] sw_subst {tag} B={C} R={R} W={W} n_codes={subst.shape[0]} "
+                f"go={params.gap_open} ge={params.gap_extend}: 3/3 outputs equal (tolerance 0)")
+        if tag == "main":
+            ms = _median_ms(lambda: protein_cuda.sw_align_substmat_cuda(*t, subst, params))
+            plain_ms = _median_ms(lambda: sw_align_substmat(*t, subst, params), reps=3)
+            cells, nbytes = subst_work(batch[2], batch[3], R, W, subst.shape[0])
+            bound_ms, by = bound(cells, nbytes, SUBST_CELLS_PER_S)
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms (of 3); "
+                     f"{cells} useful cells of {C * R * W} padded, {_share(ms, bound_ms)} "
+                     f"({by}) [{smi}]")
+        print(line)
+    try:
+        protein_cuda.sw_align_substmat_cuda(*t, torch.zeros((33, 33), dtype=torch.int32,
+                                                            device=dev), prot)
+    except ValueError as e:
+        print(f"[kernels] sw_subst refuses a table of 33 codes: {e}")
+    else:
+        raise AssertionError("[kernels] sw_subst took a table of 33 codes")
+    return {"sw_subst": out}
+
+
 def long_read_walkers(dev: torch.device, ref_codes: np.ndarray, n: int, L: int, seed: int):
     """Walkers of ``n`` read ends of length ``L`` drawn from a shard's text
     with Poisson(L / 100) substitutions each: (walkers, lens) on ``dev``."""
@@ -1732,12 +2037,14 @@ def phase_golden(dev: torch.device) -> None:
 def zero_counts() -> None:
     dp_cuda.launches = dp_cuda.fwd_launches = 0
     seed_cuda.walk_launches = seed_cuda.locate_launches = 0
+    protein_cuda.launches = 0
 
 
 def read_counts() -> dict:
     return {
         "dp_full": dp_cuda.launches, "dp_fwd": dp_cuda.fwd_launches,
         "mmp_seed": seed_cuda.walk_launches, "locate": seed_cuda.locate_launches,
+        "sw_subst": protein_cuda.launches,
     }
 
 
@@ -2122,6 +2429,13 @@ def _cli(argv, dev: torch.device) -> tuple:
     if rc != 0:
         raise AssertionError(f"[cli] {argv[0]} exited {rc}")
     return time.perf_counter() - t, tee.text()
+
+
+def mask_clock(err: str) -> str:
+    """A run's standard error less what the clock writes: the stage
+    timestamps and seconds (the CPU tests compare the two CLIs' by it)."""
+    err = re.sub(r"\[TIMESTAMP\] .*? (\S+\.\.\.)$", r"[TIMESTAMP] \1", err, flags=re.M)
+    return re.sub(r"took [\d.]+ sec|done in [\d.]+s", "took", err)
 
 
 def _stage_seconds(stderr: str) -> dict:
@@ -2530,16 +2844,78 @@ def _asm_diff(got: dict, want: dict) -> list:
                                                 "ra_lsam_sha256") if got[k] != want[k]]
 
 
-def phase_asm(dev: torch.device, smi: str) -> float:
+def _protein_records() -> dict:
+    return json.loads((FIX / "torch_protein_records.json").read_text())
+
+
+def _protein_diff(got: dict, want: dict) -> list:
+    """The fields of two ``protein_record``s that differ."""
+    bad = [(k, *text_diff(got[k], want[k])) for k in ("nr_lsam_id", "nr_report")
+           if got[k] != want[k]]
+    return bad + [(k, got[k], want[k]) for k in ("r2g_sha256", "r2g_lines") if got[k] != want[k]]
+
+
+@contextlib.contextmanager
+def _protein_probe(acc: dict, batch: dict):
+    """Time the protein remap into ``acc`` (host clock): "remap" the whole
+    of ``protein_remap``, "blastx" its search, "dp" the DP call with the
+    card synchronized after it, "traceback" the host tracebacks; record the
+    DP batch's (B, R, W), useful cells and launches and the tracebacks'
+    count and cells into ``batch``."""
+    from megapath_tpu_torch.classify import protein as prot_mod
+    from megapath_tpu_torch.pipeline import assembly as asm_mod
+    from megapath_tpu_torch.pipeline import megapath as pipe_mod
+
+    dp, tb = prot_mod.sw_align_protein, prot_mod._traceback
+    batch.update(tracebacks=0, traceback_cells=0, launches=0, B=0, R=0, W=0, useful=0)
+
+    def run_dp(reads, refs, read_lens, ref_lens, params):
+        (B, R), W = reads.shape, refs.shape[1]
+        useful = int((read_lens.long() * ref_lens.long()).sum())
+        before = protein_cuda.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = dp(reads, refs, read_lens, ref_lens, params)
+        torch.cuda.synchronize()
+        acc["dp"] = acc.get("dp", 0.0) + time.perf_counter() - t
+        batch.update(B=batch["B"] + B, R=max(batch["R"], R), W=max(batch["W"], W),
+                     useful=batch["useful"] + useful,
+                     launches=batch["launches"] + protein_cuda.launches - before)
+        return res
+
+    def run_tb(q, s, params):
+        batch["tracebacks"] += 1
+        batch["traceback_cells"] += len(q) * len(s)
+        t = time.perf_counter()
+        try:
+            return tb(q, s, params)
+        finally:
+            acc["traceback"] = acc.get("traceback", 0.0) + time.perf_counter() - t
+
+    prot_mod.sw_align_protein, prot_mod._traceback = run_dp, run_tb
+    try:
+        with _host_timed(acc, pipe_mod, "protein_remap", "remap"), \
+                _host_timed(acc, asm_mod, "blastx_m8", "blastx"):
+            yield
+    finally:
+        prot_mod.sw_align_protein, prot_mod._traceback = dp, tb
+    for k in ("remap", "blastx", "dp", "traceback"):
+        acc.setdefault(k, 0.0)
+
+
+def phase_asm(dev: torch.device, smi: str) -> tuple:
     """The assembly stage (``run -A``) on the card. The world part: the
     world's indexes built with ``build-index``, its pairs plus a dense
     SARS-CoV-2 tiling through ``run -A`` on device and on host seeding.
     The realistic part: the world's pairs plus two novel viruses' 9,000
-    pairs through ``run`` and then ``run -A`` on the same prefix (the
-    journal leaves the assembly stage alone), its host steps timed and
-    its launches counted. Every contigs FASTA, r2c LSAM, report and
-    LSAM.id equals the JAX CLI's record (``torch_asm_records.json``).
-    Returns the phase's seconds."""
+    pairs through ``run`` and then ``run -A --protein-db`` (the realistic
+    protein DB) on the same prefix (the journal leaves the assembly stage
+    and the protein remap alone), its host steps timed, the protein
+    remap's seeding, DP, tracebacks and tail timed and its launches
+    counted. Every contigs FASTA, r2c LSAM, report and LSAM.id equals the
+    JAX CLI's record (``torch_asm_records.json``), the protein remap's
+    outputs the JAX CLI's (``torch_protein_records.json``). Returns the
+    phase's seconds and sw_subst's launches."""
     import tempfile
 
     from megapath_tpu_torch.pipeline import assembly as asm_mod
@@ -2573,9 +2949,10 @@ def phase_asm(dev: torch.device, smi: str) -> float:
                   f"contigs, r2c, reports and both LSAM.id equal the JAX CLI's; launches "
                   f"{counts} [{smi}]")
 
+        write_protein_files(world, d)
         prefix = str(d / "real" / "run")
         run_s, _ = _cli(asm_run_argv(d, prefix, True, reads=d / "real", assembly=False), dev)
-        acc, seen = {}, {}
+        acc, seen, prot_acc, batch = {}, {}, {}, {}
         zero_counts()
         with contextlib.ExitStack() as st:
             st.enter_context(_bbnorm_probe(asm_mod, seen))
@@ -2586,31 +2963,154 @@ def phase_asm(dev: torch.device, smi: str) -> float:
                     (asm_mod, "build_fm_index", "contig index"),
                     (AlignEngine, "align_pairs", "align back")):
                 st.enter_context(_host_timed(acc, owner, name, key))
-            asm_s, err = _cli(asm_run_argv(d, prefix, True, reads=d / "real"), dev)
+            st.enter_context(_protein_probe(prot_acc, batch))
+            asm_s, err = _cli(asm_run_argv(d, prefix, True, reads=d / "real") + [
+                "--protein-db", str(d / "real" / "prot.fa")], dev)
         counts = read_counts()
-        _require_launches("asm realistic", counts, ("dp_full", "mmp_seed", "locate"))
+        _require_launches("asm realistic", counts, ("dp_full", "mmp_seed", "locate",
+                                                     "sw_subst"))
         got = asm_record(prefix)
+        got_prot = protein_record(prefix)
     genomes, _ = asm_realistic_workload()
     stats = asm_stats(got["contigs_fa"], genomes, seen["extracted"], seen["kept"])
     w = want["realistic"]
     bad = _asm_diff(got, w) + ([("stats", stats, w["stats"])] if stats != w["stats"] else [])
+    bad += _protein_diff(got_prot, _protein_records()["realistic"])
     if bad:
         raise AssertionError(f"[asm] realistic: differs from the JAX CLI's record: {bad}")
     stage = _stage_seconds(err)["assembly"]
     split = ", ".join(f"{k} {v:.3f} s" for k, v in acc.items())
     print(f"[asm] realistic (the world's 88 pairs + {len(genomes)} novel viruses' "
           f"{sum(n for _, _, n in ASM_VIRUSES)} pairs, 2 x {ASM_READ_LEN} bp, device "
-          f"seeding): run {run_s:.3f} s; run -A {asm_s:.3f} s, the assembly stage "
-          f"{stage:.3f} s = {split}, the rest (the FASTQ and LSAM re-read, the outputs) "
-          f"{stage - sum(acc.values()):.3f} s [{smi}]")
+          f"seeding): run {run_s:.3f} s; run -A --protein-db {asm_s:.3f} s, the assembly "
+          f"stage {stage:.3f} s = {split}, protein remap {prot_acc['remap']:.3f} s, the rest "
+          f"(the FASTQ and LSAM re-read, the outputs) "
+          f"{stage - sum(acc.values()) - prot_acc['remap']:.3f} s [{smi}]")
     rec = ", ".join(f"{k} {v:.4f}" for k, v in stats["recovery"].items())
     print(f"[asm] realistic: bbnorm kept {stats['kept_pairs']} of {stats['extracted_pairs']} "
           f"pairs; {stats['contigs']} contigs, N50 {stats['n50']}, {stats['total_bp']} bp; "
           f"recovery {rec}; {got['r2c_lines']} r2c lines; contigs, r2c, reports and both "
-          f"LSAM.id equal the JAX CLI's; the contig engine's launches {counts} [{smi}]")
+          f"LSAM.id equal the JAX CLI's; the contig engine's and blastx's launches {counts} "
+          f"[{smi}]")
+    print(f"[asm] realistic protein remap: {prot_acc['remap']:.3f} s = protein seeding "
+          f"{prot_acc['blastx'] - prot_acc['dp'] - prot_acc['traceback']:.3f} s (translate, "
+          f"k-mer join, bands, the padded batch), DP {prot_acc['dp']:.3f} s ({batch['launches']} "
+          f"sw_subst launch, host clock around the synchronized call: B={batch['B']} "
+          f"R={batch['R']} W={batch['W']}, {batch['useful']} useful cells of "
+          f"{batch['B'] * batch['R'] * batch['W']} padded), traceback "
+          f"{prot_acc['traceback']:.3f} s ({batch['tracebacks']} host tracebacks, "
+          f"{batch['traceback_cells']} cells), the tail (m8 -> LSAM, taxid lookup, r2g, "
+          f"report) {prot_acc['remap'] - prot_acc['blastx']:.3f} s; "
+          f"{got_prot['nr_lsam_id'].count(chr(10))} NR LSAM.id lines, {got_prot['r2g_lines']} "
+          f"r2g lines, equal to the JAX CLI's [{smi}]")
     secs = time.perf_counter() - t_phase
     print(f"[asm] the assembly phase took {secs:.1f} s")
-    return secs
+    return secs, counts["sw_subst"]
+
+
+def run_outputs(d: Path, prefix: str) -> dict:
+    """Every file a run wrote under ``d / prefix``: text and markers as
+    bytes, the align state's npz by member."""
+    return {p.name[len(prefix):]: npz_digest(p) if p.suffix == ".npz" else p.read_bytes()
+            for p in sorted(d.glob(prefix + ".*"))}
+
+
+def acd_problems(lines: list) -> list:
+    """``tests/test_protein.py:298-327``'s checks of blastx's m8 lines
+    against the ac-diamond golden (``acd.m8``): every golden query's top
+    hit has the golden subject, a bitscore within 10% of its, and on an
+    exact-match contig the same length, identity, mismatches and subject
+    span; no junk query hits. Returns what fails."""
+    golden = {}
+    for line in open(PROT_ACD / "acd.m8"):
+        c = line.rstrip("\n").split("\t")
+        golden[c[0]] = c
+    ours: dict = {}
+    for line in lines:
+        c = line.split("\t")
+        ours.setdefault(c[0], []).append(c)
+    bad = [f"junk query {q} hit" for q in ours if q.endswith("_junk")]
+    for q, g in golden.items():
+        if q not in ours:
+            bad.append(f"{q}: no hit, ac-diamond hit {g[1]}")
+            continue
+        top = max(ours[q], key=lambda c: float(c[11]))
+        if top[1] != g[1] or abs(float(top[11]) - float(g[11])) > 0.10 * float(g[11]):
+            bad.append(f"{q}: {top[1]} {top[11]} against ac-diamond's {g[1]} {g[11]}")
+        if float(g[2]) == 100.0 and (float(top[2]) != 100.0 or top[3] != g[3] or top[4] != "0"
+                                     or (top[8], top[9]) != (g[8], g[9])):
+            bad.append(f"{q}: columns {top[2:10]} against {g[2:10]}")
+    return bad
+
+
+def phase_protein(dev: torch.device, smi: str) -> tuple:
+    """The protein path (stage 4.1) on the card. (a) The ac-diamond fixture
+    through ``blastx_m8`` on the card: the lines equal the JAX record and
+    pass ``tests/test_protein.py``'s golden checks. (b) The world part
+    (phase 14's world files and the world protein DB) through ``run -A
+    --protein-db`` on device seeding: the three protein files non-empty,
+    every output equal to the JAX CLI's record. (c) ``run --protein-db``
+    without ``-A`` writes exactly the files ``run`` writes. Returns the
+    phase's seconds and sw_subst's launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    want = _protein_records()
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if protein_digests(world) != {k: want[k] for k in ("world_db_sha256", "realistic_db_sha256",
+                                                        "acd_sha256")}:
+        raise AssertionError("[protein] the inputs differ from the fixture's: numpy's generator "
+                             "drifted, this is not a port fault")
+    prots, queries = acd_inputs()
+    zero_counts()
+    t = time.perf_counter()
+    lines = blastx_m8(queries, ProteinDB.build(prots), device=dev)
+    acd_s = time.perf_counter() - t
+    launched = read_counts()["sw_subst"]
+    if lines != want["acd"] or acd_problems(lines) or not launched:
+        raise AssertionError(
+            f"[protein] ac-diamond fixture: m8 lines against the JAX record "
+            f"{text_diff(chr(10).join(lines), chr(10).join(want['acd']))}, golden checks "
+            f"{acd_problems(lines)}, sw_subst launches {launched}")
+    print(f"[protein] ac-diamond fixture ({len(queries)} contigs against {len(prots)} proteins) "
+          f"through blastx_m8 on the card: {len(lines)} m8 lines equal the JAX record, the "
+          f"golden checks hold; {acd_s:.3f} s, sw_subst launches {launched} [{smi}]")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_asm_files(world, d)
+        write_protein_files(world, d)
+        for argv in world_build_argvs(d):
+            _cli(argv, dev)
+        prefix = str(d / "protein_world")
+        zero_counts()
+        dt, _ = _cli(protein_world_argv(d, prefix), dev)
+        counts = read_counts()
+        _require_launches("protein world", counts, ("dp_full", "mmp_seed", "locate", "sw_subst"))
+        got = {**asm_record(prefix), **protein_record(prefix)}
+        bad = _asm_diff(got, want["world"]) + _protein_diff(got, want["world"])
+        empty = [suf for suf in PROTEIN_FILES if not Path(prefix + suf).read_bytes()]
+        if bad or empty:
+            raise AssertionError(f"[protein] world: differs from the JAX CLI's record {bad}, "
+                                 f"empty {empty}")
+        launched += counts["sw_subst"]
+        print(f"[protein] world + SARS-CoV-2 tiling, run -A --protein-db, device seeding: "
+              f"{dt:.3f} s; {got['nr_lsam_id'].count(chr(10))} NR LSAM.id lines, "
+              f"{got['r2g_lines']} r2g lines, the NR report, the contigs, r2c, reports and "
+              f"LSAM.id equal the JAX CLI's; launches {counts} [{smi}]")
+        outs = {}
+        for tag, argv in (("plain", asm_run_argv(d, str(d / "plain"), True, assembly=False)),
+                          ("protein_db", protein_world_argv(d, str(d / "protein_db"),
+                                                            assembly=False))):
+            _cli(argv, dev)
+            outs[tag] = run_outputs(d, tag)
+        if outs["plain"] != outs["protein_db"]:
+            raise AssertionError(f"[protein] run --protein-db without -A wrote "
+                                 f"{sorted(outs['protein_db'])}, run wrote {sorted(outs['plain'])}")
+        print(f"[protein] run --protein-db without -A writes the files run writes "
+              f"({', '.join(sorted(outs['plain']))}), byte for byte")
+    secs = time.perf_counter() - t_phase
+    print(f"[protein] the protein phase took {secs:.1f} s")
+    return secs, launched
 
 
 def main() -> int:
@@ -2622,6 +3122,7 @@ def main() -> int:
     toy = make_toy(dev)
     phase_index(dev, toy)
     timing = kernels_dp(dev, smi)
+    timing.update(kernels_subst(dev, smi))
     timing.update(kernels_seeding(dev, smi, toy, lat))
     phase_golden(dev)
     launches = {"dp_fwd": phase_step(dev)}
@@ -2636,10 +3137,12 @@ def main() -> int:
     del large
     shard_s = phase_shard(dev, smi, lat)
     db_s = phase_db(dev, smi)
-    asm_s = phase_asm(dev, smi)
+    asm_s, asm_subst = phase_asm(dev, smi)
+    prot_s, prot_subst = phase_protein(dev, smi)
+    launches["sw_subst"] = asm_subst + prot_subst
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
-          f"assembly phase {asm_s:.1f} s) [{smi}]")
+          f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

@@ -19,7 +19,11 @@ given, it never runs on the CPU by itself):
                 stage: the viral and unmapped pairs through bbnorm and the
                 multi-k assembler (or ``--megahit-bin``) on the host, the
                 contigs indexed and the reads aligned back on the device
-                -> PREFIX.contigs.fa, PREFIX.r2c.lsam
+                -> PREFIX.contigs.fa, PREFIX.r2c.lsam; ``-A --protein-db``
+                adds the protein remap (blastx of the contigs and the
+                still-unmapped reads, its DP on the device) ->
+                PREFIX.nr.lsam.id, PREFIX.nt.unmap.r2g.lsam.id,
+                PREFIX.nr.report
   report        LSAM.id -> Kraken-style report (genKrakenReport)
 
 Stream tools (the reference's cc/ toolchain and its Perl glue):
@@ -29,9 +33,8 @@ bbduk. Evaluation tools: count-table, m8-cov, maplen-hist. All run on
 the host.
 
 What the port has not ported parses and then raises NotImplementedError
-naming the ROADMAP item: ``run --protein-db`` (the protein remap, A9b),
-``run --devices`` and ``--spmd`` (A10), and the ``amplicon`` subcommand
-(A9c).
+naming the ROADMAP item: ``run --devices`` and ``--spmd`` (A10), and the
+``amplicon`` subcommand (A9c).
 """
 from __future__ import annotations
 
@@ -135,10 +138,6 @@ def _cmd_build_db(args) -> int:
 
 
 def _cmd_run(args) -> int:
-    if args.protein_db is not None:
-        raise NotImplementedError(
-            "run --protein-db: the protein remap (stage 4.1) is ROADMAP A9b"
-        )
     if args.devices:
         raise NotImplementedError(
             "run --devices: multi-device shard placement is ROADMAP A10; the port "
@@ -168,12 +167,21 @@ def _cmd_run(args) -> int:
         batch_size=args.batch_size,
         bam=args.bam,
     )
+    prot_db = None
+    if args.protein_db:
+        from megapath_tpu_torch.classify.protein import ProteinDB
+        from megapath_tpu_torch.io.fastq import read_fastx
+
+        prot_db = ProteinDB.build(
+            [(r.name, r.seq) for r in read_fastx(args.protein_db)]
+        )
     pipe = MegaPathPipeline(
         nt_shards, db, hg_shard=hg, adapters=adapters, config=cfg,
         ribo_shard=ribo, device=dev,
     )
     res = pipe.run_files(args.r1, args.r2, args.prefix,
-                         assembly=args.assembly, megahit_bin=args.megahit_bin)
+                         assembly=args.assembly, megahit_bin=args.megahit_bin,
+                         protein_db=prot_db)
     print(
         f"[run] pairs in={res.n_input_pairs} preprocessed={res.n_after_preprocess} "
         f"non-human={res.n_after_human} non-ribo={res.n_after_ribo} "
@@ -458,8 +466,8 @@ def main(argv=None) -> int:
                    help="torch device that builds the indexes (cuda or cpu)")
     b.set_defaults(fn=_cmd_build_db)
 
-    r = sub.add_parser("run", help="run the detection pipeline (-A: the assembly "
-                                   "stage; --protein-db, --devices, --spmd refused)")
+    r = sub.add_parser("run", help="run the detection pipeline (--devices, --spmd "
+                                   "refused)")
     r.add_argument("-1", dest="r1", required=True)
     r.add_argument("-2", dest="r2", required=True)
     r.add_argument("-p", dest="prefix", default="megapath")
@@ -483,7 +491,8 @@ def main(argv=None) -> int:
                    help="assembly + protein remap stage (runMegaPath.sh:267-330)")
     r.add_argument("--megahit-bin", default=None)
     r.add_argument("--protein-db", default=None,
-                   help="protein FASTA for the stage-4.1 blastx (ROADMAP A9b: refused)")
+                   help="protein FASTA (NR-style, accessions 0x1-joined) "
+                        "for the stage-4.1 in-process blastx")
     r.add_argument("--devices", type=int, default=0,
                    help="distribute NT shard engines over N devices "
                         "(ROADMAP A10: refused unless 0)")

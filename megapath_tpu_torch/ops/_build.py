@@ -110,6 +110,8 @@ def _signatures() -> dict:
         "mp_dp_full_max_width": ([], ci),
         "mp_mmp_seed": ([vp] * 11 + [ci] * 12 + [cf, ci, cf, cf, ci, ci, vp], ci),
         "mp_locate": ([vp] * 6 + [ci] * 3 + [vp], ci),
+        "mp_sw_subst": ([vp] * 9 + [ci] * 6 + [vp], ci),
+        "mp_sw_subst_tile_rows": ([], ci),
         "mp_sort_pairs_temp_bytes": ([ci, ci, ctypes.POINTER(ctypes.c_size_t)], ci),
         "mp_sort_pairs": ([vp, ctypes.c_size_t] + [vp] * 4 + [ci, ci,
                           ctypes.POINTER(ctypes.c_int), vp], ci),

@@ -14,7 +14,10 @@ run them, and ``chip_smoke.py`` holds the CUDA kernels against them.
 ``sw_align_auto`` (forward only, what ``align_step`` calls) decide by
 the tensors' device: the plain version for CPU tensors, the hand-written
 kernel (``ops/dp_cuda.py``) for CUDA tensors, and never one in place of
-the other.
+the other. The protein path's DP is the same recurrence under a
+substitution matrix: ``sw_align_substmat`` is its plain version and
+``sw_align_protein`` (BLOSUM62, what ``blastx`` calls) decides the same
+way, the kernel being ``ops/protein_cuda.py``'s.
 
 ``sw_traceback``, ``sw_traceback_ops`` and ``sw_traceback_batch`` are the
 reference's host numpy tracebacks (the CIGARs of the SAM/BAM sink),
@@ -68,12 +71,24 @@ def sw_align(
     ``>= ref_len`` are computed but never chosen. Ties go to the lowest
     ref row within a column and to the earliest column across columns.
     """
-    B, R = reads.shape
-    W = refs.shape[1]
-    dev = reads.device
-    go, ge = params.gap_open, params.gap_extend
     refs = refs.to(torch.int32)
     reads = reads.to(torch.int32)
+    dev = reads.device
+    match = torch.tensor(params.match, dtype=torch.int32, device=dev)
+    mismatch = torch.tensor(params.mismatch, dtype=torch.int32, device=dev)
+    return _forward_scan(
+        lambda j: torch.where(refs == reads[:, j : j + 1], match, mismatch),
+        reads.shape[1], refs.shape, read_lens, ref_lens, params, dev,
+    )
+
+
+def _forward_scan(sub_at, n_cols: int, shape, read_lens, ref_lens,
+                  params: DPParams, dev) -> DPResult:
+    """The forward recurrence of ``sw_align`` over read columns ``0 ..
+    n_cols - 1``, ``sub_at(j)`` giving column j's int32 [B, W]
+    substitution scores (``shape`` = (B, W))."""
+    B, W = shape
+    go, ge = params.gap_open, params.gap_extend
     read_lens = read_lens.to(torch.int32)
     row = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     row_valid = row < ref_lens.to(torch.int32)[:, None]
@@ -82,16 +97,14 @@ def sw_align(
     # equal scores, the lowest row
     K = 1 << max(W - 1, 1).bit_length()
     row_key = (K - 1 - row).to(torch.int64)
-    match = torch.tensor(params.match, dtype=torch.int32, device=dev)
-    mismatch = torch.tensor(params.mismatch, dtype=torch.int32, device=dev)
 
     H = torch.zeros((B, W), dtype=torch.int32, device=dev)
     Fg = torch.full((B, W), NEG, dtype=torch.int32, device=dev)
     best = torch.zeros(B, dtype=torch.int32, device=dev)
     best_i = torch.zeros_like(best)
     best_j = torch.zeros_like(best)
-    for j in range(R):
-        sub = torch.where(refs == reads[:, j : j + 1], match, mismatch)
+    for j in range(n_cols):
+        sub = sub_at(j)
         F_new = torch.maximum(H + go, Fg + ge)
         M = F.pad(H[:, :-1], (1, 0)) + sub
         H_noE = torch.clamp_min(torch.maximum(M, F_new), 0)
@@ -185,6 +198,62 @@ def sw_align_full_auto(
         from megapath_tpu_torch.ops.dp_cuda import sw_align_full_cuda
 
         return sw_align_full_cuda(reads, refs, read_lens, ref_lens, params)
+    raise ValueError(f"no DP for tensors on {reads.device}")
+
+
+def sw_align_substmat(
+    reads: torch.Tensor,  # uint8 [B, R] query codes
+    refs: torch.Tensor,  # uint8 [B, W] subject window codes
+    read_lens: torch.Tensor,  # int32 [B]
+    ref_lens: torch.Tensor,  # int32 [B]
+    subst: torch.Tensor,  # int32 [n_codes, n_codes] substitution matrix
+    params: DPParams = DPParams(),
+) -> DPResult:
+    """Plain affine-gap local alignment under a substitution matrix
+    (``megapath_tpu/ops/dp.py:146``, BLOSUM62 on the protein path): the
+    recurrence and tie rules of ``sw_align`` with ``subst[read code, ref
+    code]`` in place of match/mismatch. A code >= n_codes scores 0 against
+    everything, as the JAX version's one-hot rows make it; the table gets a
+    zero row and column for such codes, so one gather fetches a column's
+    scores. Runs only up to the batch's longest read: later columns change
+    nothing."""
+    B, R = reads.shape
+    dev = reads.device
+    n = subst.shape[0]
+    tab = torch.zeros((n + 1, n + 1), dtype=torch.int32, device=dev)
+    tab[:n, :n] = subst.to(device=dev, dtype=torch.int32)
+    refs_c = refs.to(torch.int64).clamp_max(n)
+    reads_c = reads.to(torch.int64).clamp_max(n)
+    n_cols = int(read_lens.max().clamp(0, R)) if B else 0
+    return _forward_scan(
+        lambda j: torch.gather(tab[reads_c[:, j]], 1, refs_c),
+        n_cols, refs.shape, read_lens, ref_lens, params, dev,
+    )
+
+
+PROTEIN_PARAMS = DPParams(match=0, mismatch=0, gap_open=-11, gap_extend=-1)
+
+
+def sw_align_protein(
+    reads: torch.Tensor,  # uint8 [B, R] query aa codes
+    refs: torch.Tensor,  # uint8 [B, W] subject aa codes
+    read_lens: torch.Tensor,  # int32 [B]
+    ref_lens: torch.Tensor,  # int32 [B]
+    params: DPParams = PROTEIN_PARAMS,
+) -> DPResult:
+    """BLOSUM62 local alignment (the AC-DIAMOND blastx scoring) by the
+    tensors' device: ``sw_align_substmat`` on the CPU, the hand-written
+    kernel (``ops/protein_cuda.py``, ``csrc/sw_subst.cu``) on a card, which
+    raises on what it does not take; there is no fallback."""
+    from megapath_tpu_torch.classify.protein import BLOSUM62
+
+    subst = torch.from_numpy(BLOSUM62).to(reads.device)
+    if reads.device.type == "cpu":
+        return sw_align_substmat(reads, refs, read_lens, ref_lens, subst, params)
+    if reads.device.type == "cuda":
+        from megapath_tpu_torch.ops.protein_cuda import sw_align_substmat_cuda
+
+        return sw_align_substmat_cuda(reads, refs, read_lens, ref_lens, subst, params)
     raise ValueError(f"no DP for tensors on {reads.device}")
 
 

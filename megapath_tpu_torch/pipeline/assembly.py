@@ -1,10 +1,10 @@
-"""Assembly path (runMegaPath.sh -A, stage 4).
+"""Assembly + protein remap path (runMegaPath.sh -A, stages 4/4.1).
 
-The port's copy of ``megapath_tpu/pipeline/assembly.py`` less the
-protein remap (stage 4.1, ROADMAP A9b), held equal to it by
-``tests/test_torch_assembly.py``. The reference shells out to bbnorm |
-MEGAHIT, then aligns reads back to contigs with soap4
-(runMegaPath.sh:267-299). Here:
+The port's copy of ``megapath_tpu/pipeline/assembly.py``, held equal to
+it by ``tests/test_torch_assembly.py`` and ``tests/test_torch_protein.py``.
+The reference shells out to bbnorm | MEGAHIT, then aligns reads back to
+contigs with soap4 and contigs to NR with AC-DIAMOND, finally joining
+read->contig x contig->genome hits (runMegaPath.sh:267-330). Here:
 
 - viral/unmapped read extraction follows extractFromLSAM.pl -v -t
 - digital normalization is filters.bbnorm (host)
@@ -14,6 +14,9 @@ MEGAHIT, then aligns reads back to contigs with soap4
 - read->contig alignment reuses the port's AlignEngine on a contig
   index built on the engine's device, so on a card the contigs are
   indexed there and the reads aligned back by the port's kernels
+- protein search is the in-process blastx (classify.protein, its DP on
+  the device), then the m8 -> LSAM -> taxid -> report tail on the host;
+  the transitive join is r2c_to_r2g
 """
 
 from __future__ import annotations
@@ -25,17 +28,22 @@ from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from megapath_tpu_torch.align.engine import AlignEngine
 from megapath_tpu_torch.align.output import best_per_seq
 from megapath_tpu_torch.align.params import AlignParams, MmpParams
+from megapath_tpu_torch.classify.extras import m8_to_lsam, r2c_to_r2g
+from megapath_tpu_torch.classify.protein import blastx_m8
+from megapath_tpu_torch.classify.taxlookup import tax_lookup_line
 from megapath_tpu_torch.filters.bbnorm import normalize_pairs
 from megapath_tpu_torch.index.fm import build_fm_index
-from megapath_tpu_torch.index.pack import pack_fasta, pack_reads
+from megapath_tpu_torch.index.pack import encode_seq, pack_fasta, pack_reads
 from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx
-from megapath_tpu_torch.io.lsam import LsamRecord
+from megapath_tpu_torch.io.lsam import LsamRecord, parse_lsam_line
 from megapath_tpu_torch.pipeline.multik import assemble_multik
+from megapath_tpu_torch.taxonomy.report import KrakenReport
 
 
 def extract_viral_and_unmapped(
@@ -248,3 +256,63 @@ def assembly_path(
                 )
             )
     return AssemblyResult(contigs, r2c)
+
+
+def protein_remap(
+    asm: AssemblyResult,
+    recs1: Sequence[FastqRecord],
+    recs2: Sequence[FastqRecord],
+    prot_db,
+    taxdb,
+    cutoff: int = 40,
+    *,
+    device: torch.device,
+):
+    """Stage 4.1 (runMegaPath.sh:300-325): translated search of the
+    contigs + still-unmapped reads against the protein DB, taxid
+    lookup, transitive read->contig->genome join, and the NR report.
+
+    The in-process ``classify.protein.blastx`` replaces the external
+    ``ac-diamond blastx | view -o m8`` pair, its DP on ``device``;
+    everything downstream is the byte-paritied m8 -> lsam ->
+    taxLookupAcc -> genKrakenReport tail, on the host. DB subject names
+    carry accessions joined by the literal "0x1" exactly like the
+    MegaPath NR build (m8_to_lsam.pl:20-45).
+
+    Returns (nr_lsam_id_records, r2g_records, nr_report_text).
+    """
+    # contig.unmap.fa: reads whose read->contig score stayed below the
+    # cutoff (extractFromLSAM -t), plus every contig renamed contig_<i>
+    best_r2c = {rec.name: rec.score for rec in asm.read2contig}
+    queries = []
+    for r in list(recs1) + list(recs2):
+        if best_r2c.get(r.name, 0) < cutoff:
+            queries.append((r.name, encode_seq(r.seq)))
+    for i, c in enumerate(asm.contigs):
+        queries.append((f"contig_{i}", encode_seq(c)))
+
+    m8_lines = blastx_m8(queries, prot_db, device=device)
+    nr_lsam = list(m8_to_lsam(m8_lines))
+
+    # taxLookupAcc on the protein hits (prot.accession2taxid contract)
+    nr_lsam_id = [
+        parse_lsam_line(tax_lookup_line(taxdb, rec.to_line()))
+        for rec in nr_lsam
+    ]
+
+    # read -> contig -> genome transitive join (r2c_to_r2g.pl)
+    r2g = list(r2c_to_r2g(asm.read2contig, nr_lsam_id, threshold=cutoff))
+
+    # nr.report: genKrakenReport over nr.lsam.id + r2g minus contig_*
+    # rows (runMegaPath.sh:324 "grep -v '^contig_'")
+    rows = [r for r in nr_lsam_id if not r.name.startswith("contig_")] + r2g
+    rpt = KrakenReport(taxdb)
+    scores = np.array([r.score for r in rows], dtype=np.int64)
+    lcas = np.zeros(len(rows), dtype=np.int64)
+    for i, r in enumerate(rows):
+        tids = [int(t) for _, t in r.hits if t.lstrip("-").isdigit()]
+        tids = [t for t in tids if t > 0]
+        lcas[i] = taxdb.lca(tids) if tids else 0
+    eff = np.where(lcas > 0, scores, -1)
+    rpt.add_lsam_batch(eff, lcas, cutoff)
+    return nr_lsam_id, r2g, rpt.format()

@@ -21,12 +21,15 @@ and unmapped pairs through bbnorm and the multi-k assembler (or
 ``megahit_bin``) on the host, the contigs indexed and the reads aligned
 back on the pipeline's device, ``PREFIX.contigs.fa`` and
 ``PREFIX.r2c.lsam`` byte-identical to the JAX pipeline's
-(``tests/test_torch_cli_asm.py``).
+(``tests/test_torch_cli_asm.py``); with ``protein_db=`` also stage 4.1,
+the protein remap (blastx, its DP on the pipeline's device), writing
+``PREFIX.nr.lsam.id``, ``PREFIX.nt.unmap.r2g.lsam.id`` and
+``PREFIX.nr.report`` byte-identical to the JAX pipeline's
+(``tests/test_torch_cli_protein.py``).
 
 Left out, and refused with NotImplementedError naming the ROADMAP item
-that ports them: the protein remap (stage 4.1, ``protein_db=``, A9b), the
-one-program SPMD backend (``PipelineConfig.spmd``) and multi-device shard
-placement (``devices=``, A10).
+that ports them: the one-program SPMD backend (``PipelineConfig.spmd``)
+and multi-device shard placement (``devices=``, A10).
 """
 
 from __future__ import annotations
@@ -57,7 +60,11 @@ from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno
 from megapath_tpu_torch.io.lsam import LsamRecord, read_lsam
 from megapath_tpu_torch.io.sam import hits_to_sam, sam_header
 from megapath_tpu_torch.io.stream import stream_read_pairs
-from megapath_tpu_torch.pipeline.assembly import assembly_path, extract_viral_and_unmapped
+from megapath_tpu_torch.pipeline.assembly import (
+    assembly_path,
+    extract_viral_and_unmapped,
+    protein_remap,
+)
 from megapath_tpu_torch.taxonomy.report import KrakenReport
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB, get_correct_acc, remove_version
 from megapath_tpu_torch.utils.timing import StageTimer
@@ -251,10 +258,6 @@ class MegaPathPipeline:
         align-state snapshot give stage-level resume like the
         reference's gates (runMegaPath.sh:109-246).
         """
-        if protein_db is not None:
-            raise NotImplementedError(
-                "run_files(protein_db=): the protein remap (stage 4.1) is ROADMAP A9b"
-            )
         cfg = self.cfg
         bs = batch_size or cfg.batch_size
         raw_lsam = out_prefix + ".nt.raw.lsam.id"
@@ -535,10 +538,11 @@ class MegaPathPipeline:
                     fo.write(line)
                     fr.write(ra_obj.rewrite_line(line) + "\n")
 
-        # ---- stage 4 (-A): assembly --------------------------------------
+        # ---- stage 4 (-A): assembly + protein remap ----------------------
         if assembly and not os.path.exists(out_prefix + ".assembly.done"):
             with timer.stage("assembly"):
-                self._assembly_stage(r1_path, r2_path, out_prefix, megahit_bin)
+                self._assembly_stage(r1_path, r2_path, out_prefix, megahit_bin,
+                                     protein_db=protein_db)
             with open(out_prefix + ".assembly.done", "w") as f:
                 f.write("ok\n")
 
@@ -557,11 +561,15 @@ class MegaPathPipeline:
         )
 
     def _assembly_stage(
-        self, r1_path, r2_path, out_prefix: str, megahit_bin: Optional[str]
+        self, r1_path, r2_path, out_prefix: str, megahit_bin: Optional[str],
+        protein_db=None,
     ) -> None:
-        """Stage 4 (-A, runMegaPath.sh:267-299): extract viral + unmapped
-        pairs from the filtered LSAM, bbnorm + assemble on the host, map
-        the reads back to the contigs on the pipeline's device."""
+        """Stage 4/4.1 (-A, runMegaPath.sh:267-330): extract viral +
+        unmapped pairs from the filtered LSAM, bbnorm + assemble on the
+        host, map the reads back to the contigs on the pipeline's device;
+        with ``protein_db`` (a ``classify.protein.ProteinDB``), the protein
+        remap of the contigs and the still-unmapped reads, its DP on the
+        pipeline's device."""
         lsam_id = list(read_lsam(out_prefix + ".nt.lsam.id"))
         recs1 = list(read_fastx(r1_path))
         recs2 = list(read_fastx(r2_path))
@@ -578,6 +586,19 @@ class MegaPathPipeline:
         with open(out_prefix + ".r2c.lsam", "w") as f:
             for rec in res.read2contig:
                 f.write(rec.to_line() + "\n")
+        if protein_db is not None:
+            nr_lsam_id, r2g, nr_report = protein_remap(
+                res, v1, v2, protein_db, self.taxdb,
+                cutoff=self.cfg.nt_cutoff, device=self.device,
+            )
+            with open(out_prefix + ".nr.lsam.id", "w") as f:
+                for rec in nr_lsam_id:
+                    f.write(rec.to_line() + "\n")
+            with open(out_prefix + ".nt.unmap.r2g.lsam.id", "w") as f:
+                for rec in r2g:
+                    f.write(rec.to_line() + "\n")
+            with open(out_prefix + ".nr.report", "w") as f:
+                f.write(nr_report)
 
     def _write_batch_sam(
         self, bdir: str, bi: int, per_shard, names,

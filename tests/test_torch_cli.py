@@ -270,11 +270,7 @@ def test_cli_records_belong_to_the_workloads():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("flags,item", [
-    (["-A", "--protein-db", "nr.fa"], "A9"), (["--assembly", "--protein-db", "nr.fa"], "A9"),
-    (["--megahit-bin", "megahit", "--protein-db", "nr.fa"], "A9"),
-    (["--protein-db", "nr.fa"], "A9"), (["--devices", "2"], "A10"), (["--spmd"], "A10"),
-])
+@pytest.mark.parametrize("flags,item", [(["--devices", "2"], "A10"), (["--spmd"], "A10")])
 def test_run_refuses_unported_flags(tmp_path, flags, item):
     argv = ["run", "-1", "r1.fq", "-2", "r2.fq", "-p", str(tmp_path / "x"),
             "--nt-index", "nt/shard0", *TAXONOMY, *flags, *CPU]

@@ -4,12 +4,11 @@ against the JAX package's, on the CPU: the twin of
 ``chip_smoke.py``'s phase 14 (every output file, stdout and stderr, and
 the committed record ``tests/fixtures/torch_asm_records.json`` that the
 card is held to), the ``.assembly.done`` resume, ``--megahit-bin``
-through a stub executable, and the protein remap's refusal (ROADMAP
-A9b)."""
+through a stub executable, and ``run_files(protein_db=)`` (the protein
+remap, stage 4.1) in process."""
 
 import json
 import pathlib
-import re
 import stat
 import sys
 
@@ -19,12 +18,14 @@ import torch
 
 import chip_smoke as cs
 from megapath_tpu import cli as jcli
+from megapath_tpu.classify.protein import ProteinDB as JProteinDB
 from megapath_tpu.index.fm import build_fm_index as jbuild_fm_index
 from megapath_tpu.index.pack import pack_fasta as jpack_fasta
 from megapath_tpu.io.fastq import FastqRecord as JRecord
 from megapath_tpu.pipeline import MegaPathPipeline as JPipeline
 from megapath_tpu.pipeline import PipelineConfig as JConfig
 from megapath_tpu_torch import cli
+from megapath_tpu_torch.classify.protein import ProteinDB
 from megapath_tpu_torch.index.fm import build_fm_index
 from megapath_tpu_torch.index.pack import pack_fasta
 from megapath_tpu_torch.io.fastq import FastqRecord
@@ -183,34 +184,31 @@ def test_megahit_bin_stub(small, tmp_path, capsys):
     assert (tmp_path / "port.r2c.lsam").read_text()
 
 
-def test_protein_db_is_refused_naming_a9b(world, small, tmp_path):
-    with pytest.raises(NotImplementedError, match="A9b"):
-        cli.main([*_small_argv(small, tmp_path / "x", "-A", "--protein-db", "nr.fa"),
-                  "--device", "cpu"])
-    pipe = MegaPathPipeline(world["nt"], cs.mini_taxdb(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        pipe.run_files(str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
-                       str(tmp_path / "x"), assembly=True, protein_db=object())
-    assert not list(tmp_path.iterdir())
+@pytest.mark.parametrize("empty", [False, True], ids=["world_db", "empty_db"])
+def test_run_files_protein_db_equals_jax(world, mini_taxdb, tmp_path, empty):
+    """``run_files(assembly=True, protein_db=)`` writes the protein remap's
+    three files byte-identical to the JAX pipeline's, beside the assembly's;
+    an empty protein DB gives no NR hit and no genome in the r2g join."""
+    p1, p2 = _tiling(world["sars"], tmp_path, extra=3)
+    seqs = [] if empty else cs.protein_world_db(cs.world_workload(cs.WORLD_PAIRS_PER_KIND))
+    kw = dict(read_len=80, skip_preprocess=True, skip_human=True)
+    MegaPathPipeline(world["nt"], cs.mini_taxdb(), config=PipelineConfig(**kw),
+                     device=CPU).run_files(p1, p2, str(tmp_path / "port"), assembly=True,
+                                           protein_db=ProteinDB.build(seqs))
+    JPipeline(world["jnt"], mini_taxdb, config=JConfig(**kw)).run_files(
+        p1, p2, str(tmp_path / "jax"), assembly=True, protein_db=JProteinDB.build(seqs))
+    for suf in (*ASM_FILES, *cs.PROTEIN_FILES):
+        assert (tmp_path / f"port{suf}").read_bytes() == (tmp_path / f"jax{suf}").read_bytes()
+    nr = (tmp_path / "port.nr.lsam.id").read_text()
+    r2g = [ln.split("\t")[5] for ln in
+           (tmp_path / "port.nt.unmap.r2g.lsam.id").read_text().splitlines()]
+    assert r2g and (nr == "") == empty
+    assert set(r2g) == {"*"}
 
 
 # ---------------------------------------------------------------------------
 # phase 14's world part through both command lines
 # ---------------------------------------------------------------------------
-def _masked(err: str) -> str:
-    """Standard error less what the clock writes: the stage timestamps
-    and seconds, and the paths of the two runs' directories."""
-    err = re.sub(r"\[TIMESTAMP\] .*? (\S+\.\.\.)$", r"[TIMESTAMP] \1", err, flags=re.M)
-    return re.sub(r"took [\d.]+ sec|done in [\d.]+s", "took", err)
-
-
-def _outputs(d: pathlib.Path, prefix: str) -> dict:
-    """Every file a run wrote under ``prefix``: text and markers as bytes,
-    the align state's npz by member."""
-    return {p.name[len(prefix):]: cs.npz_digest(p) if p.suffix == ".npz" else p.read_bytes()
-            for p in sorted(d.glob(prefix + ".*"))}
-
-
 @pytest.fixture(scope="module")
 def asm_world(tmp_path_factory):
     world = cs.world_workload(cs.WORLD_PAIRS_PER_KIND)
@@ -237,8 +235,8 @@ def test_run_A_on_the_world_equals_jax_and_the_record(asm_world, want, capsys,
         assert main([*cs.asm_run_argv(d[tag], str(d[tag] / key), device_seeding),
                      *extra]) == 0
         out = capsys.readouterr()
-        outs[tag] = (out.out.replace(str(d[tag]), "D"), _masked(out.err).replace(str(d[tag]), "D"),
-                     _outputs(d[tag], key))
+        outs[tag] = (out.out.replace(str(d[tag]), "D"),
+                     cs.mask_clock(out.err).replace(str(d[tag]), "D"), cs.run_outputs(d[tag], key))
     assert outs["port"] == outs["jax"]
     assert {".contigs.fa", ".r2c.lsam", ".assembly.done", ".done"} <= set(outs["port"][2])
     for tag in ("jax", "port"):

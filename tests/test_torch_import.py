@@ -66,6 +66,8 @@ import megapath_tpu_torch.index.dbtools
 import megapath_tpu_torch.filters.bbnorm
 import megapath_tpu_torch.pipeline.multik
 import megapath_tpu_torch.pipeline.assembly
+import megapath_tpu_torch.classify.protein
+import megapath_tpu_torch.ops.protein_cuda
 import chip_smoke
 
 # the subcommands import their modules when they run: run each host tool
@@ -93,10 +95,11 @@ with tempfile.TemporaryDirectory() as d:
     finally:
         sys.stdout = out
 
-# run -A on the CPU: a dense tiling of the world's SARS-CoV-2 genome
-# against an NT index of HCoV-229E alone, so every pair is unmapped and
-# goes through bbnorm, the multi-k assembler and the contig engine; one
-# torch thread, as tests/torch_cpu.py pins the test processes it runs beside
+# run -A --protein-db on the CPU: a dense tiling of the world's SARS-CoV-2
+# genome against an NT index of HCoV-229E alone, so every pair is unmapped
+# and goes through bbnorm, the multi-k assembler and the contig engine, and
+# the contig through blastx against the world protein DB; one torch thread,
+# as tests/torch_cpu.py pins the test processes it runs beside
 import contextlib
 import torch
 import chip_smoke as cs
@@ -105,6 +108,7 @@ torch.set_num_threads(1)
 with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(io.StringIO()), \
         contextlib.redirect_stdout(io.StringIO()):
     cs.write_fasta(os.path.join(d, "nt.fa"), [hcov])
+    cs.write_protein_fasta(os.path.join(d, "prot.fa"), cs.protein_world_db(cs.world_workload()))
     os.mkdir(os.path.join(d, "nt"))
     assert cli.main(["build-index", os.path.join(d, "nt.fa"), os.path.join(d, "nt", "nt"),
                      "--sa-interval", "4", "--lut-k", "6", "--device", "cpu"]) == 0
@@ -118,9 +122,10 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(io.StringIO(
                      "-p", prefix, "--nt-index", os.path.join(d, "nt", "shard0"),
                      "--nodes", "tests/fixtures/nodes.dmp", "--names", "tests/fixtures/names.dmp",
                      "--acc2tid", "tests/fixtures/acc2tid.map", "-L", "80", "--skip-preprocess",
-                     "-A", "--device", "cpu"]) == 0
+                     "-A", "--protein-db", os.path.join(d, "prot.fa"), "--device", "cpu"]) == 0
     assert open(prefix + ".contigs.fa").read().startswith(">ctg0")
     assert open(prefix + ".r2c.lsam").read()
+    assert "694009" in open(prefix + ".nr.lsam.id").read()
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("BAD", bad)

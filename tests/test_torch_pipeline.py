@@ -335,9 +335,22 @@ def test_left_out_features_raise(world, kw, item):
         MegaPathPipeline(world["nt"], world["taxdb"], device=CPU, **kw)
 
 
-def test_run_files_assembly_raises(world, tmp_path):
-    """The assembly stage is ported; its protein remap (stage 4.1) is not."""
-    pipe = MegaPathPipeline(world["nt"], world["taxdb"], device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipe.run_files(str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
-                       str(tmp_path / "x"), assembly=True, protein_db=object())
+def test_run_files_protein_db_without_assembly_is_unused(world, tmp_path):
+    """``run_files(protein_db=)`` without ``assembly`` runs as the JAX
+    pipeline does: the protein DB is accepted and unused, and the run
+    writes exactly what it writes without it."""
+    from megapath_tpu_torch.classify.protein import ProteinDB
+
+    rng = np.random.default_rng(4)
+    recs = _mixed(world["seqs"], rng, [(SARS, 6), (ECOLI, 6)])
+    paths = []
+    for end in (0, 1):
+        paths.append(tmp_path / f"r{end + 1}.fq")
+        _write_fastq(recs[end], paths[-1])
+    cfg = PipelineConfig(read_len=80, skip_preprocess=True, skip_human=True)
+    db = ProteinDB.build(cs.protein_world_db(cs.world_workload(cs.WORLD_PAIRS_PER_KIND)))
+    for tag, kw in (("plain", {}), ("protein_db", {"protein_db": db})):
+        MegaPathPipeline(world["nt"], world["taxdb"], config=cfg, device=CPU).run_files(
+            str(paths[0]), str(paths[1]), str(tmp_path / tag), **kw)
+    assert cs.run_outputs(tmp_path, "protein_db") == cs.run_outputs(tmp_path, "plain")
+    assert not (tmp_path / "protein_db.nr.lsam.id").exists()

@@ -5,8 +5,8 @@
                                   [--locate-scan]
 
 ``--old`` names a directory that holds another version of any of
-``dp_full.cu``, ``mmp_seed.cu`` and ``locate.cu`` (for example a parent
-commit's, written there with ``git show
+``dp_full.cu``, ``mmp_seed.cu``, ``locate.cu`` and ``sw_subst.cu`` (for
+example a parent commit's, written there with ``git show
 <commit>:megapath_tpu_torch/csrc/locate.cu``). They are compiled with the
 library's own nvcc flags into ``<old>/libold_kernels.so`` and loaded
 beside the checkout's library (each with its own ctypes handle, so the
@@ -19,7 +19,9 @@ outputs must equal the plain version's first. The cases are the main
 path's DP shapes; the walk on the toy workload's 8,192 walkers (default
 and exact dials) and the exact rescue's 1,024 walkers; the locate on the
 SA rows of the toy's 4,096 read ends' seeds, both builds on the same
-tables (the checkout's layout). With ``--large`` also the 512 Mbp shard's
+tables (the checkout's layout); the protein DP at phase 3's main shape
+and at a batch padded to a 29.6 kbp contig's frame. With ``--large``
+also the 512 Mbp shard's
 40,960 walkers, its rescue shape and the locate on their rows. A walk's
 time is also given per iteration of its longest walker, a locate's beside
 its bytes bound and, with ``--probe``, its chain floor. ``--probe``
@@ -49,7 +51,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from megapath_tpu_torch.align import seeding_dev  # noqa: E402
 from megapath_tpu_torch.align.params import AlignParams  # noqa: E402
-from megapath_tpu_torch.ops import _build, dp_cuda, seed_cuda  # noqa: E402
+from megapath_tpu_torch.ops import _build, dp_cuda, protein_cuda, seed_cuda  # noqa: E402
 from megapath_tpu_torch.ops.dp import DPParams, sw_align, sw_align_full  # noqa: E402
 
 OUT = ROOT / "chiprun_out" / "kernel_turns.txt"
@@ -143,6 +145,27 @@ def dp_cases(turns: Turns, dev, smi: str) -> None:
     turns.time("dp_fwd graft (256,128,256)", lambda: dp_cuda.sw_align_cuda(*t, params), smi)
 
 
+def subst_cases(turns: Turns, dev, smi: str) -> None:
+    """The protein DP at phase 3's main shape (a 10 kbp contig's 48 frames
+    x 64 candidates) and at a blastx batch padded to a 29.6 kbp contig's
+    frame (most candidates far shorter than R)."""
+    rng = np.random.default_rng(5)
+    subst = torch.from_numpy(cs.BLOSUM62).to(dev)
+    params = cs.PROTEIN_PARAMS
+    for C, R, W in ((3072, 3334, 320), (4096, 9873, 297)):
+        batch = cs.protein_batch(rng, C, R, W)
+        if R > 5000:  # a few long frames among many read-length ones
+            batch[2][64:] = np.minimum(batch[2][64:], 50)
+        t = [torch.from_numpy(a).to(dev) for a in batch]
+        turns.check(f"sw_subst {C},{R},{W}",
+                    lambda: protein_cuda.sw_align_substmat_cuda(*t, subst, params),
+                    cs.sw_align_substmat(*t, subst, params), cs.FWD_FIELDS)
+        cells, nbytes = cs.subst_work(batch[2], batch[3], R, W, subst.shape[0])
+        turns.time(f"sw_subst ({C},{R},{W}) {cells} cells",
+                   lambda: protein_cuda.sw_align_substmat_cuda(*t, subst, params), smi,
+                   bound_ms=cs.bound(cells, nbytes, cs.SUBST_CELLS_PER_S)[0])
+
+
 def walk_cases(turns: Turns, dev, smi: str, fm, read_ends, tag: str) -> None:
     reads, lens = read_ends
     dfm = seeding_dev.DeviceFM.from_host(fm, dev)
@@ -220,6 +243,7 @@ ENTRY_POINTS = {
     "dp_full.cu": ("mp_dp_full", "mp_dp_fwd", "mp_dp_full_max_width"),
     "mmp_seed.cu": ("mp_mmp_seed",),
     "locate.cu": ("mp_locate",),
+    "sw_subst.cu": ("mp_sw_subst", "mp_sw_subst_tile_rows"),
 }
 
 
@@ -249,7 +273,10 @@ def main() -> int:
         say(f"[probe] dependent load, {level}: {ns:.1f} ns a hop [{smi}]")
     if "dp_full.cu" in have:
         dp_cases(turns, dev, smi)
-    workloads = [("toy", cs.toy_workload, 2048, "L2")]
+    if "sw_subst.cu" in have:
+        subst_cases(turns, dev, smi)
+    workloads = [("toy", cs.toy_workload, 2048, "L2")] if have & {"mmp_seed.cu",
+                                                                   "locate.cu"} else []
     if args.large:
         workloads.append(("512 Mbp", cs.large_workload, 10240, "HBM"))
     for tag, make, n, level in workloads:
