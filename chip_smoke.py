@@ -1782,20 +1782,68 @@ def subst_work(read_lens, ref_lens, R: int, W: int, n_codes: int) -> tuple:
     return int((rl * wl).sum()), int(rl.sum() + wl.sum()) + 20 * len(rl) + 4 * n_codes**2
 
 
+def long_batch(rng: np.random.Generator, C: int, R: int, W: int):
+    """A protein batch whose first 64 candidates share a long frame and
+    whose others' queries are cut to 50 aa: a blastx batch padded to one
+    long contig's frame."""
+    batch = protein_batch(rng, C, R, W)
+    batch[2][64:] = np.minimum(batch[2][64:], 50)
+    return batch
+
+
+def move_long(batch, where: str):
+    """``batch`` (``long_batch``'s) with its 64 long candidates moved to
+    the end ("last") or to every C / 64-th index ("interleaved")."""
+    C = len(batch[2])
+    if where == "last":
+        return [np.roll(a, -64, axis=0) for a in batch]
+    slots = np.arange(0, C, C // 64)[:64]
+    src = np.empty(C, np.int64)  # the candidate each slot takes
+    src[slots] = np.arange(64)
+    src[np.setdiff1d(np.arange(C), slots)] = np.arange(64, C)
+    return [a[src] for a in batch]
+
+
+def full_windows(batch, W: int):
+    """``batch`` with every window ``W`` rows long."""
+    reads, refs, rl, wl = batch
+    return reads, refs, rl, np.full_like(wl, W)
+
+
+# the schedules every sw_subst case runs under: no candidate long (one
+# warp each), every candidate long (a block each), and the wrapper's rule
+SUBST_SCHEDULES = (("one warp each", None), ("all long", 0),
+                   ("default", protein_cuda.LONG_FACTOR))
+
+
 def kernels_subst(dev: torch.device, smi: str) -> dict:
     """sw_subst (``csrc/sw_subst.cu``) against the plain
-    ``sw_align_substmat`` on the card, every output equal (tolerance 0): at
-    the main shape, a 10 kbp contig's 48 frames x 64 candidates, timed
-    beside its bound; and on the contract's corners: zero and one lengths,
-    R or W of 1, ties of both orders, codes >= n_codes, another table of
-    fewer codes and gap costs with gap_open > gap_extend, an odd B, W
-    across every stripe and tile boundary and one W of several
-    thousand."""
+    ``sw_align_substmat`` on the card, every output equal (tolerance 0),
+    each case under three schedules (SUBST_SCHEDULES): at the main shape,
+    a 10 kbp contig's 48 frames x 64 candidates, timed beside its bound;
+    and on the contract's corners: zero and one lengths, R or W of 1, ties
+    of both orders, codes >= n_codes, another table of fewer codes and gap
+    costs with gap_open > gap_extend, an odd B, W across every stripe and
+    tile boundary and one W of several thousand; and on the schedule's:
+    long candidates last and interleaved with short ones, every candidate
+    long, one long candidate, windows at each warp-stripe boundary of the
+    long path (128 x rows a lane, +-1) and a wide one, B below the
+    persistent grid, and two launches back to back (the item counter
+    starts over). Prints what a launch gets: registers, shared memory,
+    resident blocks."""
     rng = np.random.default_rng(20261017)
     lib = _build.load()
     if lib.mp_sw_subst_tile_rows() != protein_cuda.TILE_ROWS:
         raise AssertionError(f"[kernels] the library's tile is {lib.mp_sw_subst_tile_rows()} "
                              f"rows, protein_cuda.TILE_ROWS is {protein_cuda.TILE_ROWS}")
+    occ = protein_cuda.occupancy(dev)
+    resident_warps = occ["blocks_per_sm"] * occ["sms"] * occ["warps"]
+    print(f"[kernels] sw_subst launch: {occ['registers']} registers a thread, "
+          f"{occ['local_bytes']} bytes of local memory, {occ['shared_bytes']} bytes of shared "
+          f"memory a block of {occ['warps']} warps, {occ['blocks_per_sm']} resident blocks an "
+          f"SM x {occ['sms']} SMs = {resident_warps} warps [{smi}]")
+    if occ["local_bytes"]:
+        raise AssertionError(f"[kernels] sw_subst spills: {occ['local_bytes']} bytes a thread")
     blosum = torch.from_numpy(BLOSUM62).to(dev)
     other = np.random.default_rng(3).integers(-6, 7, (7, 7)).astype(np.int32)
     other = torch.from_numpy((other + other.T) // 2).to(dev)
@@ -1817,17 +1865,35 @@ def kernels_subst(dev: torch.device, smi: str) -> dict:
         ("b1", protein_batch(rng, 1, 300, 250), blosum, prot),
     ] + [(f"w{w}", protein_batch(rng, 96, 120, w), blosum, prot)
          for w in (31, 32, 33, 64, 65, 511, 512, 513, 1024, 1025, 1537)] + [
-        ("w5000", protein_batch(rng, 64, 300, 5000, per_query=8), blosum, prot)]
+        ("w5000", protein_batch(rng, 64, 300, 5000, per_query=8), blosum, prot),
+        ("long_last", move_long(long_batch(rng, 1024, 2000, 300), "last"), blosum, prot),
+        ("long_interleaved", move_long(long_batch(rng, 1024, 2000, 300), "interleaved"),
+         blosum, prot),
+        ("all_long", full_windows(protein_batch(rng, 64, 600, 400), 400), blosum, prot),
+        ("one_long", full_windows(protein_batch(rng, 1, 2500, 700), 700), blosum, prot),
+    ] + [(f"stripe_w{w}", full_windows(protein_batch(rng, 32, 200, w), w), blosum, prot)
+         for p in (1, 2, 3, protein_cuda.TILE_ROWS // 32)
+         for w in (128 * p - 1, 128 * p, 128 * p + 1)] + [
+        ("wide_long", full_windows(protein_batch(rng, 8, 400, 6000, per_query=4), 6000),
+         blosum, prot),
+        ("b_below_grid", protein_batch(rng, 5, 300, 250), blosum, prot),
+    ]
     out = {"max_abs_err": 0, "library_ms": None}
     for tag, batch, subst, params in cases:
-        t = [torch.from_numpy(a).to(dev) for a in batch]
-        got = protein_cuda.sw_align_substmat_cuda(*t, subst, params)
-        out["max_abs_err"] = max(out["max_abs_err"], _hold(
-            f"sw_subst {tag}", got, sw_align_substmat(*t, subst, params), FWD_FIELDS))
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in batch]
+        want = sw_align_substmat(*t, subst, params)
         C, R = batch[0].shape
         W = batch[1].shape[1]
+        n_long = []
+        for name, factor in SUBST_SCHEDULES:
+            got = protein_cuda.sw_align_substmat_cuda(*t, subst, params, factor)
+            out["max_abs_err"] = max(out["max_abs_err"], _hold(
+                f"sw_subst {tag} ({name})", got, want, FWD_FIELDS))
+            n_long.append(int(protein_cuda.schedule(t[2], t[3], R, W, resident_warps,
+                                                    factor)[1][1]))
         line = (f"[kernels] sw_subst {tag} B={C} R={R} W={W} n_codes={subst.shape[0]} "
-                f"go={params.gap_open} ge={params.gap_extend}: 3/3 outputs equal (tolerance 0)")
+                f"go={params.gap_open} ge={params.gap_extend}: 3/3 outputs equal (tolerance 0) "
+                f"with {' / '.join(map(str, n_long))} long candidates")
         if tag == "main":
             ms = _median_ms(lambda: protein_cuda.sw_align_substmat_cuda(*t, subst, params))
             plain_ms = _median_ms(lambda: sw_align_substmat(*t, subst, params), reps=3)
@@ -1837,6 +1903,13 @@ def kernels_subst(dev: torch.device, smi: str) -> dict:
             line += (f"; median: kernel {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms (of 3); "
                      f"{cells} useful cells of {C * R * W} padded, {_share(ms, bound_ms)} "
                      f"({by}) [{smi}]")
+        if tag == "long_last":
+            # two launches back to back, nothing synchronised between them
+            first = protein_cuda.sw_align_substmat_cuda(*t, subst, params)
+            second = protein_cuda.sw_align_substmat_cuda(*t, subst, params)
+            for k, got in enumerate((first, second)):
+                _hold(f"sw_subst {tag}, launch {k + 1} of 2 back to back", got, want, FWD_FIELDS)
+            line += "; two launches back to back equal it too"
         print(line)
     try:
         protein_cuda.sw_align_substmat_cuda(*t, torch.zeros((33, 33), dtype=torch.int32,

@@ -2,8 +2,10 @@
 ``sw_align_substmat``/``sw_align_protein`` against JAX's at tolerance 0
 (score, end_ref, end_read) and against ``tests/test_protein.py:150``'s
 numpy oracle; a numpy model of ``csrc/sw_subst.cu``'s arithmetic (its row
-tiles, the carried row, each lane's best and the key reduction) equal to
-the plain version across tile boundaries; the twins of every test in
+tiles, a long candidate's stripes handed warp to warp, the carried row,
+each lane's best and the key reduction) equal to the plain version across
+stripe and tile boundaries, the rings' counters under random
+interleavings of the warps, and the wrapper's longest-first schedule; the twins of every test in
 ``tests/test_protein.py`` through the port's ``blastx``/``blastx_m8`` and
 ``protein_remap``, their m8 lines and remap outputs byte-equal to the JAX
 package's, and both ac-diamond golden checks."""
@@ -153,72 +155,108 @@ def _beats(a, b):
     return a[0] > b[0] or (a[0] == b[0] and (a[1], a[2]) < (b[1], b[2]))
 
 
-def kernel_model(q, s, ql, sl, subst, params, max_rows=16):
-    """One candidate as ``sw_subst.cu`` computes it with ``max_rows`` rows a
-    lane: equal stripes of 32 lanes a tile, each row's recurrence (F an
-    add-max, H without E an add-max-relu, E into the next row the plain
-    chain from H without E), a tile's last row (H, outgoing E) carried to
-    the next tile's first, each lane's first best cell of a tile (strict >
-    in column-then-row order) merged into its best by the full key, and
-    the warp's key reduction. Returns (score, end_ref, end_read)."""
+def _walk(q, s, n_cols, n_rows, row0, per_lane, above, tab, go, ge, lanes):
+    """One warp's stripe as ``sw_subst.cu``'s ``walk`` computes it: lane k
+    holds rows row0 + k * per_lane .. (cut at n_rows), the row above comes
+    from ``above`` ((H, outgoing E) per column; None for the window's first
+    row), each row's recurrence (F an add-max, H without E an add-max-relu,
+    E into the next row the plain chain from H without E), each lane's
+    first best cell of the stripe (strict > in column-then-row order)
+    merged into ``lanes[k]`` by the full key. Returns the stripe's last
+    row, (H, outgoing E) per column, for the stripe below."""
+    n = tab.shape[0] - 1
+    rows = range(row0, min(row0 + 32 * per_lane, n_rows))
+    H = {r: 0 for r in rows}
+    F = {r: NEG for r in rows}
+    tb = [(0, 0, 0)] * 32
+    out_h = np.zeros(n_cols, np.int64)
+    out_e = np.zeros(n_cols, np.int64)
+    for j in range(n_cols):
+        qc = min(int(q[j]), n)
+        if above is None:
+            diag, e = 0, NEG
+        else:
+            diag, e = (above[0][j - 1] if j else 0), above[1][j]
+        for r in rows:
+            hp = H[r]
+            f = max(hp + go, F[r] + ge)
+            hne = max(diag + tab[qc, min(int(s[r]), n)], f, 0)
+            h = max(hne, e)
+            e = max(hne + go, e + ge)
+            diag, H[r], F[r] = hp, h, f
+            lane = (r - row0) // per_lane
+            if h > tb[lane][0]:
+                tb[lane] = (h, j, r)
+        out_h[j], out_e[j] = H[rows[-1]], e
+    for k in range(32):
+        if tb[k][0] > 0 and _beats(tb[k], lanes[k]):
+            lanes[k] = tb[k]
+    return out_h, out_e
+
+
+def kernel_model(q, s, ql, sl, subst, params, max_rows=16, warps=1):
+    """One candidate as ``sw_subst.cu`` computes it with at most
+    ``max_rows`` rows a lane and ``warps`` warps a candidate (1: a short
+    candidate, one warp; the kernel's kWarps: a long one, a whole block):
+    tiles of ``warps`` stripes of 32 lanes, all lanes given equal rows, each
+    stripe walked by its warp (``_walk``) and its last row handed to the
+    next warp's stripe, a tile's last row carried to the next tile's
+    first, each lane's best merged across tiles by the full key, and the
+    key reduction over every lane of every warp. Returns (score, end_ref,
+    end_read)."""
     go, ge = params[2], params[3]
     n = subst.shape[0]
     tab = np.zeros((n + 1, n + 1), np.int64)
     tab[:n, :n] = subst
     n_cols = min(max(int(ql), 0), len(q))
     n_rows = min(max(int(sl), 0), len(s))
-    lanes = [(0, 0, 0)] * 32
+    lanes = [[(0, 0, 0)] * 32 for _ in range(warps)]
     if n_cols and n_rows:
-        tiles0 = -(-n_rows // (32 * max_rows))
-        per_lane = -(-n_rows // (32 * tiles0))
-        tile_rows = 32 * per_lane
-        n_tiles = -(-n_rows // tile_rows)
-        carry_h = np.zeros(n_cols, np.int64)
-        carry_e = np.full(n_cols, NEG, np.int64)
-        for tile in range(n_tiles):
-            rows = range(tile * tile_rows, min((tile + 1) * tile_rows, n_rows))
-            H = {r: 0 for r in rows}
-            F = {r: NEG for r in rows}
-            tb = [(0, 0, 0)] * 32
-            out_h = np.zeros(n_cols, np.int64)
-            out_e = np.zeros(n_cols, np.int64)
-            for j in range(n_cols):
-                qc = min(int(q[j]), n)
-                diag = carry_h[j - 1] if j else 0
-                e = carry_e[j]
-                for r in rows:
-                    hp = H[r]
-                    f = max(hp + go, F[r] + ge)
-                    hne = max(diag + tab[qc, min(int(s[r]), n)], f, 0)
-                    h = max(hne, e)
-                    e = max(hne + go, e + ge)
-                    diag, H[r], F[r] = hp, h, f
-                    lane = (r - tile * tile_rows) // per_lane
-                    if h > tb[lane][0]:
-                        tb[lane] = (h, j, r)
-                out_h[j], out_e[j] = H[rows[-1]], e
-            carry_h, carry_e = out_h, out_e
-            for k in range(32):
-                if tb[k][0] > 0 and _beats(tb[k], lanes[k]):
-                    lanes[k] = tb[k]
-    best = lanes[0]
-    for k in range(1, 32):
-        if _beats(lanes[k], best):
-            best = lanes[k]
+        tiles0 = -(-n_rows // (warps * 32 * max_rows))
+        per_lane = -(-n_rows // (warps * 32 * tiles0))
+        stripe = 32 * per_lane
+        tile_rows = warps * stripe
+        above = None
+        for t0 in range(0, n_rows, tile_rows):
+            last = min(warps, -(-(n_rows - t0) // stripe)) - 1
+            for w in range(last + 1):
+                above = _walk(q, s, n_cols, n_rows, t0 + w * stripe, per_lane, above, tab,
+                              go, ge, lanes[w])
+    best = (0, 0, 0)
+    for key in (key for warp in lanes for key in warp):
+        if _beats(key, best):
+            best = key
     s_, j_, i_ = best
     return (s_, i_ + 1, j_ + 1) if s_ > 0 else (0, 0, 0)
 
 
-@pytest.mark.parametrize("max_rows,widths", [
-    (1, (1, 31, 32, 33, 65)),  # 32-row tiles: W = tile, tile + 1, 2 tile + 1
-    (2, (64, 65, 129)),
-    (16, (1, 64, 200)),
+def _kernel_source():
+    return (cs.HERE / "megapath_tpu_torch" / "csrc" / "sw_subst.cu").read_text()
+
+
+def _constant(src, name):
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("max_rows,widths,warps", [
+    # one warp a candidate: 32-row tiles, W = tile, tile + 1, 2 tile + 1
+    pytest.param(1, (1, 31, 32, 33, 65), 1, id="1-widths0"),
+    pytest.param(2, (64, 65, 129), 1, id="2-widths1"),
+    pytest.param(16, (1, 64, 200), 1, id="16-widths2"),
+    # a block of 4 warps a long candidate: stripes handed warp to warp,
+    # W at each stripe and block-tile boundary (128 x rows a lane, +-1)
+    pytest.param(1, (1, 33, 127, 128, 129, 257), 4, id="warps4-1"),
+    pytest.param(2, (255, 256, 257, 513), 4, id="warps4-2"),
+    pytest.param(16, (97, 200), 4, id="warps4-16"),
 ])
-def test_kernel_model_equals_plain_across_tiles(max_rows, widths):
-    """The kernel's tiles, carried row and best keys give the plain
-    version's score and end cell at tolerance 0, across every tile
-    boundary, with ties, codes >= n_codes and ``gap_open > gap_extend``."""
-    rng = np.random.default_rng(40 + max_rows)
+def test_kernel_model_equals_plain_across_tiles(max_rows, widths, warps):
+    """The kernel's tiles, stripes, carried rows and best keys give the
+    plain version's score and end cell at tolerance 0, across every stripe
+    and tile boundary, with ties, codes >= n_codes and ``gap_open >
+    gap_extend``, on one warp a candidate and on a block's warps."""
+    rng = np.random.default_rng(40 + max_rows + warps)
     subst = jprot.BLOSUM62
     for w in widths:
         for params in (PROTEIN, (0, 0, -1, -3)):
@@ -231,22 +269,124 @@ def test_kernel_model_equals_plain_across_tiles(max_rows, widths):
             sl = np.array([w, w, w, w, 0, max(w - 3, 1)], np.int32)
             want = sw_align_substmat(*_t(q, s, ql, sl, subst), DPParams(*params))
             for b in range(6):
-                got = kernel_model(q[b], s[b], ql[b], sl[b], subst, params, max_rows)
+                got = kernel_model(q[b], s[b], ql[b], sl[b], subst, params, max_rows, warps)
                 assert got == tuple(int(getattr(want, f)[b]) for f in FIELDS), (w, params, b)
 
 
 def test_kernel_tile_matches_the_wrapper():
     """The wrapper allocates the carried rows for windows wider than the
-    kernel's tile (``kTile`` = 32 x ``kMaxRows``)."""
-    import re
-
+    kernel's tile (``kTile`` = 32 x ``kMaxRows``); the model's long
+    candidates take the kernel's ``kWarps``."""
     from megapath_tpu_torch.ops import protein_cuda
 
-    src = (cs.HERE / "megapath_tpu_torch" / "csrc" / "sw_subst.cu").read_text()
-    rows = int(re.search(r"constexpr int kMaxRows = (\d+);", src).group(1))
-    codes = int(re.search(r"constexpr int kMaxCodes = (\d+);", src).group(1))
-    assert 32 * rows == protein_cuda.TILE_ROWS
-    assert codes == protein_cuda.MAX_CODES
+    src = _kernel_source()
+    assert 32 * _constant(src, "kMaxRows") == protein_cuda.TILE_ROWS
+    assert _constant(src, "kMaxCodes") == protein_cuda.MAX_CODES
+    assert _constant(src, "kWarps") == 4
+
+
+def _ring_run(n_cols, chunk, lead, start_lead, ring, warps, rng):
+    """A long candidate's warps handing their stripes' last rows down the
+    shared-memory rings with ``sw_subst.cu``'s counters, one step of one
+    warp at a time in a random order. At a step s that is a multiple of
+    ``chunk`` a warp publishes ``done`` (min(max(s - 31, 0), n_cols), lane
+    31) and ``used`` (min(s, n_cols), lane 0), waits until the ring below
+    has had min(s + chunk - 31 - ring, n_cols) columns read and the ring
+    above holds min(n_cols, s + lead) (s + ``start_lead`` at s = 0), then
+    loads the ring above's columns
+    s + chunk .. s + 2 chunk - 1 (and, at s = 0, the first chunk's); at
+    every step lane 31 writes column s - 31, and a warp publishes ``done``
+    = n_cols when it ends. Returns the steps taken; fails on a deadlock or
+    on a column loaded from a slot that does not hold it."""
+    done, used = [0] * (warps - 1), [0] * (warps - 1)
+    slots = [[None] * ring for _ in range(warps - 1)]
+    step = [0] * warps
+    n_steps = n_cols + 31
+    taken = 0
+
+    def advance(w):
+        s = step[w]
+        if s == n_steps:  # the walk ends
+            if w < warps - 1:
+                done[w] = n_cols
+            step[w] += 1
+            return True
+        if s % chunk == 0:
+            if w < warps - 1:
+                done[w] = min(max(s - 31, 0), n_cols)
+            if w > 0:
+                used[w - 1] = min(s, n_cols)
+            if w < warps - 1 and used[w] < min(s + chunk - 31 - ring, n_cols):
+                return False
+            if w > 0:
+                if done[w - 1] < min(n_cols, s + (start_lead if s == 0 else lead)):
+                    return False
+                first = 0 if s == 0 else s + chunk
+                for j in range(first, min(s + 2 * chunk, n_cols)):
+                    assert slots[w - 1][j % ring] == j, (n_cols, w, s, j)
+        if w < warps - 1 and 0 <= s - 31 < n_cols:
+            slots[w][(s - 31) % ring] = s - 31
+        step[w] += 1
+        return True
+
+    while any(st <= n_steps for st in step):
+        live = [w for w in range(warps) if step[w] <= n_steps]
+        rng.shuffle(live)
+        moved = next((w for w in live if advance(w)), None)
+        assert moved is not None, f"deadlock at steps {step} (n_cols {n_cols})"
+        taken += 1
+    return taken
+
+
+@pytest.mark.parametrize("n_cols", [1, 31, 32, 33, 100, 257, 700])
+def test_ring_counters_hand_every_column_down_once(n_cols):
+    """The rings between a long candidate's warps (``kChunk``, ``kLead``,
+    ``kStartLead``, ``kRing`` of the kernel) under random interleavings of
+    the warps: no
+    deadlock, and every column a warp loads from the ring above is the one
+    the warp above wrote for it, never a later one in the same slot."""
+    import re
+
+    src = _kernel_source()
+    chunk = _constant(src, "kChunk")
+    lead, start_lead, ring = (
+        int(re.search(rf"constexpr int {name} = (\d+) \* kChunk;", src).group(1)) * chunk
+        for name in ("kLead", "kStartLead", "kRing"))
+    rng = np.random.default_rng(n_cols)
+    for _ in range(3):
+        assert _ring_run(n_cols, chunk, lead, start_lead, ring, _constant(src, "kWarps"),
+                         rng) == 4 * (n_cols + 32)
+
+
+def test_schedule_is_a_stable_longest_first_permutation():
+    """The wrapper's schedule: ``order`` a permutation of the candidates by
+    decreasing n_cols * ceil(n_rows / 32) (lengths clamped to R and W),
+    ties in index order; the long candidates (a critical path > 0 and at
+    least the factor x the total / the resident warps) stand first, none
+    when the factor is None, every one with cells when it is 0."""
+    from megapath_tpu_torch.ops import protein_cuda
+
+    rng = np.random.default_rng(12)
+    Bn, Rn, Wn = 500, 300, 200
+    rl = rng.integers(-5, Rn + 20, Bn).astype(np.int32)
+    wl = rng.integers(-5, Wn + 20, Bn).astype(np.int32)
+    rl[::7], wl[::11] = 150, 64  # many ties
+    cost = np.clip(rl, 0, Rn).astype(np.int64) * ((np.clip(wl, 0, Wn) + 31) // 32)
+    for factor, want_long in ((None, 0), (0, int((cost > 0).sum())),
+                              (1, int(((cost > 0) & (cost * 600 >= cost.sum())).sum())),
+                              (3, int(((cost > 0) & (cost * 600 >= 3 * cost.sum())).sum()))):
+        order, sched = protein_cuda.schedule(torch.from_numpy(rl), torch.from_numpy(wl), Rn,
+                                             Wn, 600, factor)
+        assert order.dtype == torch.int32 and sched.dtype == torch.int32
+        order = order.numpy()
+        np.testing.assert_array_equal(np.sort(order), np.arange(Bn))
+        np.testing.assert_array_equal(order, np.lexsort((np.arange(Bn), -cost)))
+        assert sched.tolist() == [0, want_long]
+        assert (cost[order[:want_long]] > 0).all()
+        if 0 < want_long < Bn:
+            assert cost[order[want_long - 1]] > cost[order[want_long]] or factor == 0
+    assert 0 < int(protein_cuda.schedule(torch.from_numpy(rl), torch.from_numpy(wl), Rn, Wn,
+                                         600)[1][1]) < Bn
 
 
 def test_substmat_kernel_entry_refuses_cpu_tensors():
