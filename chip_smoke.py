@@ -49,7 +49,14 @@ exits non-zero and prints no result line):
                (3,072 x 3,334 x 320, timed beside its bound) and on the
                corners: lengths 0 and 1, R or W of 1, ties, codes past the
                table, another table, gap_open > gap_extend, odd B, W across
-               every stripe and 512-row tile boundary and W = 5,000.
+               every stripe and 512-row tile boundary and W = 5,000;
+               ``sw_dna`` (the amplicon path's DNA DP, ``sw_align_dna``:
+               the same kernel under ``dna_table(SSW_PARAMS)``) against the
+               plain ``sw_align`` at the amplicon realign batch (6,912 x
+               150 x 260, timed beside its bound) and on the corners:
+               spans of 255-300 (``sw_align_auto``'s int16 kernel refuses
+               them), W of 513-1,040, lengths 0 and 1, OFF_TEXT_CODE in
+               windows, odd B, B = 1, and a code of 5 refused.
 4. golden   -- the port engine on ``cuda`` over the soap4 fixture, on
                host and on device seeding: 0/200 read-end mismatches
                against the soap4 golden on each.
@@ -159,13 +166,29 @@ exits non-zero and prints no result line):
                --protein-db`` on device seeding, every output equal to the
                JAX CLI's record; ``run --protein-db`` without ``-A``
                writes exactly the files ``run`` writes.
+16. amplicon -- the amplicon pipeline (``amplicon``): the world part
+               (``tests/test_amplicon_pipeline.py``'s planted-truth world:
+               6,000 bp TB, a human decoy and a taxon index through
+               ``build-index``, 500 pairs through ``amplicon``; the VCF
+               equals ``tests/fixtures/amplicon_planted.vcf``) and the
+               realistic part (a 4,411,532 bp target with 16 amplicons of
+               1,000 bp and 24 planted variants, a 32 Mbp decoy, 16,000 +
+               2,000 pairs of 2 x 150 bp): the run's seconds split into
+               bbduk, the decoy and target engines, the pileup and calling,
+               ``realign_windows_batched`` (its batch and DP) and
+               ``_hap_variants``, recall and false positives against the
+               planted truth. Every VCF, ``.done`` and stderr line equals
+               the JAX CLI's record (``tests/fixtures/
+               torch_amplicon_records.json``); both runs launch dp_full and
+               sw_subst.
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
 walk and the locate). The line before the last lists the kernels as JSON,
 one entry for each TPU kernel the port replaces (``mp_dp_full`` serves
 both layouts of the full DP, so ``dp_full_rows`` carries ``dp_full``'s
-launches and times; ``sw_subst``'s launches are phases 14 and 15's); the
+launches and times; ``sw_subst``'s launches are phases 14 and 15's,
+``sw_dna``'s, the same kernel under the DNA table, phase 16's); the
 last line is ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
@@ -244,6 +267,8 @@ KERNELS = {
                      "megapath_tpu/ops/dp_pallas.py:111"),
     "sw_subst": ("megapath_tpu_torch/csrc/sw_subst.cu",
                  "megapath_tpu/ops/dp.py:146"),
+    "sw_dna": ("megapath_tpu_torch/csrc/sw_subst.cu",
+               "megapath_tpu/ops/dp.py:49"),
 }
 # a TPU kernel whose contract another port kernel serves, with that
 # kernel's launches and times: the row-major _dp_full_kernel has the
@@ -276,7 +301,8 @@ DP_CELLS_PER_S = 64 * 132 * 1.98e9 / 3
 # the substitution DP's cell rate: the same lanes over the 8 int32
 # lane-instructions a cell needs at least (F an add and an add-max, the
 # table load, H without E an add-max-relu, H a max, E an add and an
-# add-max, the running best a max)
+# add-max, the running best a max). sw_dna's match/mismatch cells, whose
+# scores int16 holds, are bounded at DP_CELLS_PER_S.
 SUBST_CELLS_PER_S = 64 * 132 * 1.98e9 / 8
 # what a rank reads of an occ row (4 checkpoints | 8 BWT words; the walk
 # never loads the 4 mark words), and what a locate's mark test needs of it
@@ -441,6 +467,73 @@ def protein_batch(rng: np.random.Generator, C: int, R: int, W: int, hi: int = 20
                                       homolog[cut : 2 * cut], homolog[2 * cut + 3 :]])
             refs[b, 3 : 3 + len(homolog)] = homolog[: w - 3]
     return reads, refs, rl, wl
+
+
+def dna_batch(rng: np.random.Generator, B: int, R: int, W: int, span=(250, 300),
+              off_text: bool = True):
+    """B DNA reads of ``span`` bp (clamped to R) planted in windows of up
+    to W rows (a few substitutions, at most one indel of 1-7 bp), random
+    lengths; every fourth window from the second carries OFF_TEXT_CODE past
+    its text (with ``off_text``), every 11th read from the fourth has
+    length 0 and every 13th window from the sixth length 1. Returns numpy (reads u8 [B, R],
+    refs u8 [B, W], read_lens i32 [B], ref_lens i32 [B])."""
+    reads = np.zeros((B, R), np.uint8)
+    refs = rng.integers(0, 4, (B, W)).astype(np.uint8)
+    rl = rng.integers(min(span[0], R), min(span[1], R) + 1, B).astype(np.int32)
+    wl = rng.integers(min(W, span[0]), W + 1, B).astype(np.int32)
+    for b in range(B):
+        read = rng.integers(0, 4, rl[b]).astype(np.uint8)
+        reads[b, : rl[b]] = read
+        seg = read.copy()
+        for q in rng.integers(0, rl[b], rng.integers(0, 6)):
+            seg[q] = (seg[q] + 1) % 4
+        if rng.random() < 0.5 and rl[b] > 12:
+            q = int(rng.integers(1, rl[b] - 10))
+            n = int(rng.integers(1, 8))
+            seg = (np.delete(seg, range(q, q + n)) if rng.random() < 0.5
+                   else np.insert(seg, q, rng.integers(0, 4, n)))
+        seg = seg[: wl[b]]
+        at = int(rng.integers(0, wl[b] - len(seg) + 1))
+        refs[b, at : at + len(seg)] = seg
+        if off_text and b % 4 == 1:
+            refs[b, wl[b]:] = OFF_TEXT_CODE
+    rl[3::11], wl[5::13] = 0, 1
+    return reads, refs, rl, wl
+
+
+# the amplicon realign batch of phase 3: 24 windows x 96 reads x 3
+# haplotypes, as realign_windows_batched lays out a panel's windows
+AMP_DP_WINDOWS, AMP_DP_READS, AMP_DP_HAPS = 24, 96, 3
+
+
+def amplicon_dp_batch(rng: np.random.Generator, R: int = 150, W: int = 260):
+    """``realign_windows_batched``'s batch at full size: every window's 96
+    reads (100-R bp) against each of its 3 haplotypes (100-W bp), padded
+    with 0 as ``amplicon.realign._pad_batch`` pads; the reads of even index
+    are true reads of a haplotype (0.5% substitutions), the others random.
+    Rows run read-major, haplotype-minor. numpy (reads, refs, lens)."""
+    rows_r, rows_h = [], []
+    for _ in range(AMP_DP_WINDOWS):
+        haps = [rng.integers(0, 4, int(rng.integers(100, W + 1))).astype(np.uint8)
+                for _ in range(AMP_DP_HAPS)]
+        for i in range(AMP_DP_READS):
+            n = int(rng.integers(100, R + 1))
+            h = haps[i % AMP_DP_HAPS]
+            if i % 2 == 0 and len(h) >= n:
+                at = int(rng.integers(0, len(h) - n + 1))
+                read = h[at : at + n].copy()
+                err = rng.random(n) < AMP_ERR
+                read[err] = (read[err] + 1) % 4
+            else:
+                read = rng.integers(0, 4, n).astype(np.uint8)
+            rows_r += [read] * AMP_DP_HAPS
+            rows_h += haps
+    B = len(rows_r)
+    reads, refs = np.zeros((B, R), np.uint8), np.zeros((B, W), np.uint8)
+    for b, (r, h) in enumerate(zip(rows_r, rows_h)):
+        reads[b, : len(r)], refs[b, : len(h)] = r, h
+    return (reads, refs, np.array([len(r) for r in rows_r], np.int32),
+            np.array([len(h) for h in rows_h], np.int32))
 
 
 def dp_work(read_lens, ref_lens, R: int, W: int, res=None) -> tuple:
@@ -1455,6 +1548,244 @@ def acd_inputs():
 
 
 # ----------------------------------------------------------------------
+# the amplicon pipeline's inputs (phase 16; tests/test_torch_cli_amplicon.py
+# and tests/fixtures/make_torch_amplicon_records.py use them with either CLI)
+# ----------------------------------------------------------------------
+# the world part: tests/test_amplicon_pipeline.py's planted-truth world
+# (6,000 bp TB and 6,000 bp human decoy from seed 77, the reads from seed
+# 21), run with that test's final_as and min_depth
+AMP_WORLD_ARGS = ("--final-as", "80", "--min-depth", "4")
+# the realistic part: a TB amplicon panel at full width. H37Rv's length
+# (NC_000962.3) as a random text (no genome is in the repo), 16 amplicons
+# of 1,000 bp, 24 planted variants, 16,000 pairs of 2 x 150 bp inside the
+# amplicons (~300x each), 0.5% substitutions, and 2,000 pairs of a 32 Mbp
+# random human decoy shard (a human decoy is 3.1 Gbp)
+AMP_SEED = 41
+AMP_TARGET_NAME = "NC_000962.3"
+AMP_TARGET_BP = 4_411_532
+AMP_AMPLICONS = 16
+AMP_AMPLICON_BP = 1000
+AMP_VARIANTS = 24
+AMP_PAIRS = 16_000
+AMP_DECOY_BP = 32_000_000
+AMP_DECOY_PAIRS = 2_000
+AMP_READ_LEN = 150
+AMP_FRAGMENT = (300, 500)
+AMP_ERR = 0.005
+# the offsets of an amplicon's first and second planted variant
+AMP_VARIANT_AT = (330, 670)
+
+
+def amp_world():
+    """``tests/test_amplicon_pipeline.py``'s ``amp_world`` codes: (TB,
+    human), 6,000 bp each from seed 77."""
+    rng = np.random.default_rng(77)
+    return (rng.integers(0, 4, 6000).astype(np.uint8),
+            rng.integers(0, 4, 6000).astype(np.uint8))
+
+
+def amp_planted_pairs(tb: np.ndarray) -> list:
+    """The reads of ``test_variant_caller_planted_truth_recall_precision``
+    (seed 21; its ``_pairs``: 2 x 100 bp, insert 300, no errors) as (name,
+    seq1, qual1, seq2, qual2): 250 pairs of an allele with a hom SNP at
+    1,000, a 3 bp deletion at 2,500 and a 2 bp insertion after 4,000, and
+    250 of that allele with a het SNP at 4,800."""
+    rng = np.random.default_rng(21)
+    snp_hom, del_at, ins_at, snp_het = 1000, 2500, 4000, 4800
+    codes = tb.copy()
+    codes[snp_hom] = (codes[snp_hom] + 1) % 4
+    ins = np.array([(codes[ins_at] + 2) % 4, (codes[ins_at + 1] + 2) % 4], np.uint8)
+    allele_a = np.concatenate([codes[:del_at], codes[del_at + 3: ins_at + 1], ins,
+                               codes[ins_at + 1:]])
+    allele_b = allele_a.copy()
+    allele_b[snp_het - 1] = (allele_b[snp_het - 1] + 1) % 4  # shifted by -3 + 2
+    pairs = []
+    for tag, src in (("a", allele_a), ("b", allele_b)):
+        for i in range(250):
+            p = int(rng.integers(0, len(src) - 300))
+            pairs.append((f"{tag}{i}", _text(src[p: p + 100]), "I" * 100,
+                          _text(_COMP[src[p + 200: p + 300][::-1]]), "I" * 100))
+    return pairs
+
+
+def write_amp_world_files(d: Path) -> None:
+    """The world part's files under ``d``: ``tb.fa`` (TB), ``human.fa``
+    (chr1), ``taxon.fa`` (both), the pairs as gzip FASTQ, and the
+    directories of their indexes."""
+    tb, human = amp_world()
+    for k in ("tb", "human", "taxon"):
+        (d / k).mkdir(parents=True, exist_ok=True)
+    write_fasta(d / "tb.fa", [("TB", "", tb)])
+    write_fasta(d / "human.fa", [("chr1", "", human)])
+    write_fasta(d / "taxon.fa", [("TB", "", tb), ("chr1", "", human)])
+    write_fastq_pairs(amp_planted_pairs(tb), d / "r1.fq.gz", d / "r2.fq.gz")
+
+
+def amp_world_build_argvs(d: Path) -> list:
+    """``build-index`` of the world part's three FASTAs (sa_interval 4)."""
+    return [["build-index", str(d / f"{k}.fa"), str(d / k / k), *WORLD_INDEX_ARGS]
+            for k in ("tb", "human", "taxon")]
+
+
+def amp_world_argv(d: Path, prefix: str) -> list:
+    """``amplicon`` of the world part: the TB target, the human decoy and
+    the taxon index (loaded; the taxon filter runs only with target
+    sequence ids, which the CLI never passes)."""
+    return ["amplicon", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+            "--target-index", str(d / "tb" / "shard0"),
+            "--decoy-index", str(d / "human" / "shard0"),
+            "--taxon-index", str(d / "taxon" / "shard0"), *AMP_WORLD_ARGS]
+
+
+def _amp_reads(rng: np.random.Generator, src: np.ndarray, starts: np.ndarray,
+               frags: np.ndarray) -> tuple:
+    """2 x AMP_READ_LEN bp pairs of the fragments src[start : start + frag]
+    (read 2 the reverse complement of the fragment's end), each base
+    substituted with probability AMP_ERR: (codes1, codes2) uint8 [n, L]."""
+    L = AMP_READ_LEN
+    idx = np.arange(L)
+    r1 = src[starts[:, None] + idx]
+    r2 = _COMP[src[(starts + frags - 1)[:, None] - idx]]
+    for r in (r1, r2):
+        hit = rng.random(r.shape) < AMP_ERR
+        r[hit] = (r[hit] + 1 + rng.integers(0, 3, int(hit.sum()))) % 4
+    return r1, r2
+
+
+def amp_realistic_workload() -> dict:
+    """The realistic part, drawn from AMP_SEED: ``target`` and ``decoy``
+    codes, the amplicons' starts, the planted ``truth`` as (0-based
+    position, ref, alt, het) in VCF form (an indel anchored on the base
+    before it), and ``pairs`` (name, seq1, qual1, seq2, qual2): the
+    amplicon pairs (even ones from the allele with every variant, odd ones
+    from the allele with the hom variants only) then the decoy pairs."""
+    rng = np.random.default_rng(AMP_SEED)
+    target = rng.integers(0, 4, AMP_TARGET_BP).astype(np.uint8)
+    decoy = rng.integers(0, 4, AMP_DECOY_BP).astype(np.uint8)
+    starts = np.linspace(60_000, AMP_TARGET_BP - 60_000 - AMP_AMPLICON_BP,
+                         AMP_AMPLICONS).astype(np.int64)
+    kinds = ["snp", "snp", "del", "ins"] * (AMP_VARIANTS // 4)
+    specs = []  # (position, kind, size, het)
+    for k in range(AMP_VARIANTS):
+        pos = int(starts[k % AMP_AMPLICONS]) + AMP_VARIANT_AT[k // AMP_AMPLICONS]
+        size = 1 if kinds[k] == "snp" else int(rng.integers(1, 11))
+        specs.append((pos, kinds[k], size, (k // 4) % 2 == 1))
+    truth = []
+    for p, kind, size, het in specs:
+        if kind == "snp":
+            truth.append((p, _text(target[p: p + 1]), _text((target[p: p + 1] + 1) % 4), het))
+        elif kind == "del":
+            truth.append((p - 1, _text(target[p - 1: p + size]), _text(target[p - 1: p]), het))
+        else:
+            ins = (target[p] + 1 + np.arange(size)) % 4
+            truth.append((p, _text(target[p: p + 1]), _text(target[p: p + 1]) + _text(ins),
+                          het))
+
+    def allele(amp: int, with_het: bool) -> np.ndarray:
+        a0 = int(starts[amp])
+        out = list(target[a0: a0 + AMP_AMPLICON_BP])
+        for p, kind, size, het in sorted(specs, key=lambda s: -s[0]):
+            if not a0 <= p < a0 + AMP_AMPLICON_BP or (het and not with_het):
+                continue
+            q = p - a0
+            if kind == "snp":
+                out[q] = (out[q] + 1) % 4
+            elif kind == "del":
+                del out[q: q + size]
+            else:
+                out[q + 1: q + 1] = list((target[p] + 1 + np.arange(size)) % 4)
+        return np.array(out, np.uint8)
+
+    pairs = []
+    per_amp = AMP_PAIRS // AMP_AMPLICONS
+    for amp in range(AMP_AMPLICONS):
+        for h, src in enumerate((allele(amp, True), allele(amp, False))):
+            n = per_amp // 2
+            frags = rng.integers(*AMP_FRAGMENT, n, endpoint=True)
+            frag_starts = (rng.random(n) * (len(src) - frags + 1)).astype(np.int64)
+            r1, r2 = _amp_reads(rng, src, frag_starts, frags)
+            pairs += [(f"amp{amp}_{2 * i + h}", _text(a), "I" * AMP_READ_LEN, _text(b),
+                       "I" * AMP_READ_LEN) for i, (a, b) in enumerate(zip(r1, r2))]
+    frags = rng.integers(*AMP_FRAGMENT, AMP_DECOY_PAIRS, endpoint=True)
+    frag_starts = (rng.random(AMP_DECOY_PAIRS) * (AMP_DECOY_BP - frags + 1)).astype(np.int64)
+    r1, r2 = _amp_reads(rng, decoy, frag_starts, frags)
+    pairs += [(f"hum{i}", _text(a), "I" * AMP_READ_LEN, _text(b), "I" * AMP_READ_LEN)
+              for i, (a, b) in enumerate(zip(r1, r2))]
+    return {"target": target, "decoy": decoy, "starts": starts, "truth": truth,
+            "pairs": pairs}
+
+
+def write_amp_realistic_files(work: dict, d: Path) -> None:
+    """The realistic part's files under ``d``: ``target.fa``
+    (NC_000962.3), ``decoy.fa`` (a human shard), the pairs as gzip FASTQ,
+    and the directories of their indexes."""
+    for k in ("target", "decoy"):
+        (d / k).mkdir(parents=True, exist_ok=True)
+    write_fasta(d / "target.fa", [(AMP_TARGET_NAME, "random text of H37Rv's length",
+                                   work["target"])])
+    write_fasta(d / "decoy.fa", [("chr1_shard", "random human decoy shard", work["decoy"])])
+    write_fastq_pairs(work["pairs"], d / "r1.fq.gz", d / "r2.fq.gz")
+
+
+def amp_realistic_build_argvs(d: Path) -> list:
+    """``build-index`` of the realistic target and decoy (the defaults)."""
+    return [["build-index", str(d / f"{k}.fa"), str(d / k / k)] for k in ("target", "decoy")]
+
+
+def amp_realistic_argv(d: Path, prefix: str) -> list:
+    """``amplicon`` of the realistic part: the target and the decoy, the
+    final alignment filter at 120 (80% of a 150 bp read, as the JAX tests
+    take 80 for 100 bp reads: at the default 150 only an end without a
+    sequencing error or a variant would pass)."""
+    return ["amplicon", "-1", str(d / "r1.fq.gz"), "-2", str(d / "r2.fq.gz"), "-p", prefix,
+            "--target-index", str(d / "target" / "shard0"),
+            "--decoy-index", str(d / "decoy" / "shard0"), "--final-as", "120"]
+
+
+def amp_record(prefix: str, stderr: str) -> dict:
+    """What the amplicon gates compare (either package's ``amplicon``): the
+    VCF's text, the ``.done`` marker and the ``[amplicon]`` stderr line."""
+    return {"vcf": Path(prefix + ".vcf").read_text(),
+            "done": Path(prefix + ".done").read_text(),
+            "stderr": [l for l in stderr.splitlines() if l.startswith("[amplicon]")]}
+
+
+def amp_digests(work: dict) -> dict:
+    """sha256 of the world part's pairs and of the realistic part's
+    (``work``, from ``amp_realistic_workload``): the records' inputs; a
+    numpy generator that drifted changes them."""
+    return {"world_input_sha256": pairs_digest(amp_planted_pairs(amp_world()[0])),
+            "realistic_input_sha256": pairs_digest(work["pairs"])}
+
+
+def amp_truth_score(vcf: str, truth: list, target: np.ndarray) -> dict:
+    """Recall and false positives of a VCF's calls against the planted
+    ``truth`` ((position, ref, alt, het)) on ``target``: a call matches a
+    truth variant when both, applied to the target, give the same local
+    haplotype (an indel may be called at a shifted but equivalent place), as
+    ``tests/test_amplicon_pipeline.py``'s realistic-error test matches."""
+    def local(v, w0, w1):
+        p, ref, alt = v
+        window = _text(target[w0:w1])
+        return window[: p - w0] + alt + window[p - w0 + len(ref):]
+
+    def same(a, b):
+        if abs(a[0] - b[0]) > 15:
+            return False
+        w0 = max(0, min(a[0], b[0]) - 30)
+        w1 = min(len(target), max(a[0] + len(a[1]), b[0] + len(b[1])) + 30)
+        return local(a, w0, w1) == local(b, w0, w1)
+
+    calls = [(int(c[1]) - 1, c[3], c[4]) for c in
+             (line.split("\t") for line in vcf.splitlines() if line and line[0] != "#")]
+    found = {i for i, t in enumerate(truth) if any(same(c, t[:3]) for c in calls)}
+    false = [c for c in calls if not any(same(c, t[:3]) for t in truth)]
+    return {"recall": len(found) / len(truth), "found": len(found), "truth": len(truth),
+            "false_positives": len(false), "missing": [truth[i][:3] for i in
+                                                       range(len(truth)) if i not in found]}
+
+
+# ----------------------------------------------------------------------
 # phases on the card
 # ----------------------------------------------------------------------
 def phase_device() -> str:
@@ -1919,6 +2250,95 @@ def kernels_subst(dev: torch.device, smi: str) -> dict:
     else:
         raise AssertionError("[kernels] sw_subst took a table of 33 codes")
     return {"sw_subst": out}
+
+
+def kernels_dna(dev: torch.device, smi: str) -> dict:
+    """sw_dna: ``sw_align_dna`` on the card (``csrc/sw_subst.cu`` under
+    ``dna_table(SSW_PARAMS)``) against the plain ``sw_align``, every output
+    equal (tolerance 0), each case through ``sw_align_dna`` and under the
+    three schedules of SUBST_SCHEDULES: at the amplicon realign batch
+    (``amplicon_dp_batch``, 6,912 x 150 x 260), timed beside its bound and
+    the plain version; and on the corners: spans of 255-300 (best scores
+    past 1,023, which ``sw_align_auto``'s int16 kernel refuses), windows of
+    513-1,040 rows (across the 512-row tile), lengths 0 and 1,
+    OFF_TEXT_CODE in windows, an odd B and B = 1; a code of 5 raises, in
+    ``sw_align_dna``'s check of the tensors and in ``dna_dp``'s of its host
+    arrays. The bound counts the useful cells at DP_CELLS_PER_S."""
+    from megapath_tpu_torch.amplicon.realign import SSW_PARAMS, dna_dp
+    from megapath_tpu_torch.ops.dp import dna_table, sw_align_auto, sw_align_dna
+
+    rng = np.random.default_rng(20261018)
+    table = dna_table(SSW_PARAMS).to(dev)
+    lens01 = dna_batch(rng, 64, 150, 260, span=(100, 150))
+    lens01[2][0::4], lens01[2][1::4] = 0, 1
+    lens01[3][2::8], lens01[3][3::8] = 0, 1
+    cases = [
+        ("main", amplicon_dp_batch(rng)),
+        ("spans_255_300", dna_batch(rng, 256, 300, 300, span=(255, 300))),
+        ("w_513_1040", dna_batch(rng, 192, 150, 1040, span=(100, 150))),
+        ("lens_0_1", lens01),
+        ("off_text", dna_batch(rng, 128, 150, 260, span=(100, 150))),
+        ("odd_b", dna_batch(rng, 999, 150, 260, span=(100, 150))),
+        ("b1", dna_batch(rng, 1, 260, 260, span=(200, 260))),
+    ]
+    cases[2][1][3][:] = rng.integers(513, 1041, 192)  # every window across the tile
+    out = {"max_abs_err": 0, "library_ms": None}
+    for tag, batch in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in batch]
+        want = sw_align(*t, SSW_PARAMS)
+        got = sw_align_dna(*t, SSW_PARAMS)
+        out["max_abs_err"] = max(out["max_abs_err"], _hold(f"sw_dna {tag}", got, want,
+                                                           FWD_FIELDS))
+        for name, factor in SUBST_SCHEDULES:
+            got = protein_cuda.sw_align_substmat_cuda(*t, table, SSW_PARAMS, factor)
+            out["max_abs_err"] = max(out["max_abs_err"], _hold(
+                f"sw_dna {tag} ({name})", got, want, FWD_FIELDS))
+        C, R = batch[0].shape
+        W = batch[1].shape[1]
+        line = (f"[kernels] sw_dna {tag} B={C} R={R} W={W}: 3/3 outputs equal (tolerance 0) "
+                f"through sw_align_dna and under {len(SUBST_SCHEDULES)} schedules, best score "
+                f"{int(want.score.max())}")
+        if tag == "spans_255_300":
+            try:
+                sw_align_auto(*t, SSW_PARAMS)
+            except ValueError as e:
+                line += f"; sw_align_auto refuses it ({e})"
+            else:
+                raise AssertionError("[kernels] sw_align_auto took spans past the int16 range")
+        if tag == "main":
+            # sw_align_dna as the path calls it (amplicon.realign.dna_dp):
+            # the largest code read on the host, the table cached on the card
+            top = int(max(batch[0].max(), batch[1].max()))
+            ms = _median_ms(lambda: sw_align_dna(*t, SSW_PARAMS, max_code=top))
+            plain_ms = _median_ms(lambda: sw_align(*t, SSW_PARAMS), reps=3)
+            cells, nbytes = subst_work(batch[2], batch[3], R, W, table.shape[0])
+            # the match/mismatch recurrence at the DP's rate: this path's
+            # scores stay within match x max_read_len (4 x 512), which int16
+            # holds, so the card could run it in DPX 16x2 form whatever
+            # type the kernel computes in
+            bound_ms, by = bound(cells, nbytes, DP_CELLS_PER_S)
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            line += (f"; median: sw_align_dna {ms:.4f} ms (of 10), plain {plain_ms:.4f} ms (of "
+                     f"3); {cells} useful cells of {C * R * W} padded, {_share(ms, bound_ms)} "
+                     f"({by}) [{smi}]")
+        print(line)
+    bad = torch.from_numpy(np.ascontiguousarray(cases[0][1][1][:4])).to(dev)
+    bad[1, 7] = OFF_TEXT_CODE + 1
+    t = [torch.from_numpy(np.ascontiguousarray(a[:4])).to(dev) for a in cases[0][1]]
+    try:
+        sw_align_dna(t[0], bad, t[2], t[3], SSW_PARAMS)
+    except ValueError as e:
+        print(f"[kernels] sw_dna refuses a window code of {OFF_TEXT_CODE + 1}: {e}")
+    else:
+        raise AssertionError(f"[kernels] sw_align_dna took a code of {OFF_TEXT_CODE + 1}")
+    reads4, _, read_lens4, ref_lens4 = (a[:4] for a in cases[0][1])
+    try:  # the check on the host arrays, as the amplicon path calls it
+        dna_dp(reads4, bad.cpu().numpy(), read_lens4, ref_lens4, SSW_PARAMS, device=dev)
+    except ValueError as e:
+        print(f"[kernels] dna_dp refuses a window code of {OFF_TEXT_CODE + 1}: {e}")
+    else:
+        raise AssertionError(f"[kernels] dna_dp took a code of {OFF_TEXT_CODE + 1}")
+    return {"sw_dna": out}
 
 
 def long_read_walkers(dev: torch.device, ref_codes: np.ndarray, n: int, L: int, seed: int):
@@ -3186,6 +3606,165 @@ def phase_protein(dev: torch.device, smi: str) -> tuple:
     return secs, launched
 
 
+def _amp_records() -> dict:
+    return json.loads((FIX / "torch_amplicon_records.json").read_text())
+
+
+@contextlib.contextmanager
+def _amp_probe(acc: dict, batch: dict):
+    """Split an ``amplicon`` run into ``acc`` (host clock, the card
+    synchronized around each engine call and DP): "bbduk" (``bbduk_pair``),
+    "decoy engine" and "target engine" (``AlignEngine.align_pairs`` by the
+    engine's reference), "call" (``_call_and_realign``: the pileup, the
+    windows and the calling), within it "realign" (``realign_windows_batched``)
+    and "hap variants" (``_hap_variants``); record into ``batch`` the realign
+    batch's (B, R, W), useful cells and DP seconds, and the ``_hap_variants``
+    calls and their launches."""
+    from megapath_tpu_torch.amplicon import realign as realign_mod
+    from megapath_tpu_torch.pipeline import amplicon as amp_mod
+
+    align, dp = AlignEngine.align_pairs, realign_mod.dna_dp
+    realign, hap = realign_mod.realign_windows_batched, amp_mod._hap_variants
+    batch.update(B=0, R=0, W=0, useful=0, dp_s=0.0, hap_calls=0, hap_launches=0)
+    dp_calls = []
+
+    def timed(key, fn, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+
+    def run_align(self, *a, **k):
+        key = ("target engine" if self.ref.names[0].split()[0] == AMP_TARGET_NAME
+               else "decoy engine")
+        return timed(key, align, self, *a, **k)
+
+    def run_dp(reads, refs, read_lens, ref_lens, params, *, device):
+        t = time.perf_counter()
+        res = dp(reads, refs, read_lens, ref_lens, params, device=device)  # reads back
+        dp_calls.append((reads.shape[0], reads.shape[1], refs.shape[1],
+                         int((read_lens.astype(np.int64) * ref_lens).sum()),
+                         time.perf_counter() - t))
+        return res
+
+    def run_realign(*a, **k):
+        n = len(dp_calls)
+        try:
+            return timed("realign", realign, *a, **k)
+        finally:
+            for B, R, W, useful, secs in dp_calls[n:]:
+                batch.update(B=batch["B"] + B, R=max(batch["R"], R), W=max(batch["W"], W),
+                             useful=batch["useful"] + useful, dp_s=batch["dp_s"] + secs)
+
+    def run_hap(*a, **k):
+        before = protein_cuda.launches
+        try:
+            return timed("hap variants", hap, *a, **k)
+        finally:
+            batch["hap_calls"] += 1
+            batch["hap_launches"] += protein_cuda.launches - before
+
+    AlignEngine.align_pairs, realign_mod.dna_dp = run_align, run_dp
+    realign_mod.realign_windows_batched, amp_mod._hap_variants = run_realign, run_hap
+    try:
+        with _host_timed(acc, amp_mod, "bbduk_pair", "bbduk"), \
+                _host_timed(acc, amp_mod.AmpliconPipeline, "_call_and_realign", "call"):
+            yield
+    finally:
+        AlignEngine.align_pairs, realign_mod.dna_dp = align, dp
+        realign_mod.realign_windows_batched, amp_mod._hap_variants = realign, hap
+
+
+def _amp_diff(got: dict, want: dict) -> list:
+    return [(k, *text_diff("\n".join(got[k]) if k == "stderr" else got[k],
+                           "\n".join(want[k]) if k == "stderr" else want[k]))
+            for k in ("vcf", "done", "stderr") if got[k] != want[k]]
+
+
+def phase_amplicon(dev: torch.device, smi: str) -> tuple:
+    """The amplicon pipeline (``amplicon``) on the card. The world part:
+    ``tests/test_amplicon_pipeline.py``'s planted-truth world through
+    ``build-index`` and ``amplicon`` with a decoy and a taxon index; the VCF
+    equals ``amplicon_planted.vcf``. The realistic part: a TB amplicon panel
+    at full width (``amp_realistic_workload``) through ``build-index`` of
+    its target and its 32 Mbp decoy and ``amplicon``, the run split by
+    ``_amp_probe``, recall and false positives against the planted truth.
+    Each VCF, ``.done`` and stderr line equals the JAX CLI's record
+    (``torch_amplicon_records.json``), and each run launched dp_full and
+    sw_subst. Returns the phase's seconds and sw_subst's launches (the DNA
+    DP's) over both runs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    want = _amp_records()
+    work = amp_realistic_workload()
+    digests = amp_digests(work)
+    if digests != {k: want[k] for k in digests}:
+        raise AssertionError("[amplicon] the inputs differ from the fixture's: numpy's generator "
+                             "drifted, this is not a port fault")
+    launched = 0
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_amp_world_files(d)
+        build_s = sum(_cli(argv, dev)[0] for argv in amp_world_build_argvs(d))
+        zero_counts()
+        dt, err = _cli(amp_world_argv(d, str(d / "world")), dev)
+        counts = read_counts()
+        _require_launches("amplicon world", counts, ("dp_full", "sw_subst"))
+        got = amp_record(str(d / "world"), err)
+        bad = _amp_diff(got, want["world"])
+        if bad or got["vcf"] != (FIX / "amplicon_planted.vcf").read_text():
+            raise AssertionError(f"[amplicon] world: differs from the JAX CLI's record or the "
+                                 f"golden: {bad}")
+        launched += counts["sw_subst"]
+        print(f"[amplicon] world (planted truth, 500 pairs of 2 x 100 bp, TB + human decoy + "
+              f"taxon index): build-index {build_s:.3f} s; amplicon {dt:.3f} s; "
+              f"{got['stderr'][0]}; the VCF equals amplicon_planted.vcf and the JAX CLI's, "
+              f"the stderr line the JAX CLI's; launches {counts} [{smi}]")
+
+        write_amp_realistic_files(work, d)
+        index_s = [_cli(argv, dev)[0] for argv in amp_realistic_build_argvs(d)]
+        acc, batch = {}, {}
+        zero_counts()
+        with _amp_probe(acc, batch):
+            run_s, err = _cli(amp_realistic_argv(d, str(d / "real")), dev)
+        counts = read_counts()
+        _require_launches("amplicon realistic", counts, ("dp_full", "sw_subst"))
+        got = amp_record(str(d / "real"), err)
+    score = amp_truth_score(got["vcf"], work["truth"], work["target"])
+    bad = _amp_diff(got, want["realistic"])
+    if bad or json.loads(json.dumps(score)) != want["realistic"]["truth"]:
+        raise AssertionError(f"[amplicon] realistic: differs from the JAX CLI's record: {bad}, "
+                             f"truth {score} against {want['realistic']['truth']}")
+    launched += counts["sw_subst"]
+    call = acc.get("call", 0.0)
+    pileup = call - acc.get("realign", 0.0) - acc.get("hap variants", 0.0)
+    parts = {k: acc.get(k, 0.0) for k in ("bbduk", "decoy engine", "target engine")}
+    rest = run_s - sum(parts.values()) - call
+    print(f"[amplicon] realistic ({AMP_TARGET_BP} bp target, {AMP_AMPLICONS} amplicons of "
+          f"{AMP_AMPLICON_BP} bp, {AMP_VARIANTS} planted variants, {AMP_PAIRS} pairs of 2 x "
+          f"{AMP_READ_LEN} bp + {AMP_DECOY_PAIRS} pairs of a {AMP_DECOY_BP} bp decoy): "
+          f"build-index target {index_s[0]:.3f} s, decoy {index_s[1]:.3f} s; amplicon "
+          f"{run_s:.3f} s = " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+          + f", pileup and calling {pileup:.3f} s, realign_windows_batched "
+          f"{acc.get('realign', 0.0):.3f} s (one batch B={batch['B']} R={batch['R']} "
+          f"W={batch['W']}, {batch['useful']} useful cells of "
+          f"{batch['B'] * batch['R'] * batch['W']} padded, DP {batch['dp_s']:.3f} s on the host "
+          f"clock around the synchronized call), _hap_variants {acc.get('hap variants', 0.0):.3f} "
+          f"s ({batch['hap_calls']} calls, {batch['hap_launches']} sw_subst launches of B = 1), "
+          f"the rest (FASTQ read, index loads, engines' set-up, VCF) {rest:.3f} s [{smi}]")
+    print(f"[amplicon] realistic: {got['stderr'][0]}; recall {score['recall']:.4f} "
+          f"({score['found']} of {score['truth']}), {score['false_positives']} false positives, "
+          f"missing {score['missing']}; the VCF and stderr line equal the JAX CLI's; launches "
+          f"{counts} [{smi}]")
+    secs = time.perf_counter() - t_phase
+    print(f"[amplicon] the amplicon phase took {secs:.1f} s")
+    return secs, launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3196,6 +3775,7 @@ def main() -> int:
     phase_index(dev, toy)
     timing = kernels_dp(dev, smi)
     timing.update(kernels_subst(dev, smi))
+    timing.update(kernels_dna(dev, smi))
     timing.update(kernels_seeding(dev, smi, toy, lat))
     phase_golden(dev)
     launches = {"dp_fwd": phase_step(dev)}
@@ -3213,9 +3793,11 @@ def main() -> int:
     asm_s, asm_subst = phase_asm(dev, smi)
     prot_s, prot_subst = phase_protein(dev, smi)
     launches["sw_subst"] = asm_subst + prot_subst
+    amp_s, launches["sw_dna"] = phase_amplicon(dev, smi)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
-          f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s) [{smi}]")
+          f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s, the amplicon "
+          f"phase {amp_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch port (the runMegaPath.sh equivalent).
 
 The port of ``megapath_tpu/cli.py``, with the same subcommands and flags,
-plus ``--device`` on ``build-index``, ``build-db`` and ``run`` (default
+plus ``--device`` on ``build-index``, ``build-db``, ``run`` and ``amplicon`` (default
 ``cuda``; without a card the command raises unless ``--device cpu`` is
 given, it never runs on the CPU by itself):
 
@@ -25,6 +25,10 @@ given, it never runs on the CPU by itself):
                 PREFIX.nr.lsam.id, PREFIX.nt.unmap.r2g.lsam.id,
                 PREFIX.nr.report
   report        LSAM.id -> Kraken-style report (genKrakenReport)
+  amplicon      FASTQ pair -> bbduk -> decoy filters -> (taxon filter) ->
+                target alignment -> pileup -> windows realigned against
+                de Bruijn haplotypes (the DNA DP on the device) ->
+                PREFIX.vcf, PREFIX.done
 
 Stream tools (the reference's cc/ toolchain and its Perl glue):
 fastq2lsam, taxlookup, reassign, deinterleave, sam2cfq, extract,
@@ -33,8 +37,7 @@ bbduk. Evaluation tools: count-table, m8-cov, maplen-hist. All run on
 the host.
 
 What the port has not ported parses and then raises NotImplementedError
-naming the ROADMAP item: ``run --devices`` and ``--spmd`` (A10), and the
-``amplicon`` subcommand (A9c).
+naming the ROADMAP item: ``run --devices`` and ``--spmd`` (A10).
 """
 from __future__ import annotations
 
@@ -402,9 +405,28 @@ def _cmd_bbduk(args) -> int:
 
 
 def _cmd_amplicon(args) -> int:
-    raise NotImplementedError(
-        "amplicon: the amplicon variant pipeline is ROADMAP A9c"
+    from megapath_tpu_torch.filters.bbduk import build_kmer_ref, load_adapters
+    from megapath_tpu_torch.pipeline.amplicon import AmpliconConfig, AmpliconPipeline
+
+    dev = _device(args.device)
+    pipe = AmpliconPipeline(
+        target=load_shard(args.target_index),
+        decoys=[load_shard(p) for p in (args.decoy_index or [])],
+        taxon_db=load_shard(args.taxon_index) if args.taxon_index else None,
+        adapters=(
+            build_kmer_ref(load_adapters(args.adapters)) if args.adapters else None
+        ),
+        config=AmpliconConfig(final_as=args.final_as, min_depth=args.min_depth),
+        device=dev,
     )
+    res = pipe.run_files(args.r1, args.r2, args.prefix)
+    print(
+        f"[amplicon] in={res.n_input} qc={res.n_after_qc} "
+        f"decoy={res.n_after_decoy} taxon={res.n_after_taxon} "
+        f"final={res.n_final} variants={len(res.variants)}",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def _cmd_count_table(args) -> int:
@@ -594,8 +616,7 @@ def main(argv=None) -> int:
     s.add_argument("--entropy", type=float, default=0.75)
     s.set_defaults(fn=_cmd_bbduk)
 
-    s = sub.add_parser("amplicon", help="amplicon (TB) variant pipeline "
-                                        "(ROADMAP A9c: refused)")
+    s = sub.add_parser("amplicon", help="amplicon (TB) variant pipeline")
     s.add_argument("-1", dest="r1", required=True)
     s.add_argument("-2", dest="r2", required=True)
     s.add_argument("-p", dest="prefix", default="amplicon")
@@ -605,6 +626,7 @@ def main(argv=None) -> int:
     s.add_argument("--adapters", default=None)
     s.add_argument("--final-as", type=int, default=150)
     s.add_argument("--min-depth", type=int, default=4)
+    s.add_argument("--device", default="cuda")
     s.set_defaults(fn=_cmd_amplicon)
 
     s = sub.add_parser("count-table", help="per-rank uniq/non-uniq counts")

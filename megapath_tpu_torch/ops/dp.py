@@ -17,7 +17,8 @@ kernel (``ops/dp_cuda.py``) for CUDA tensors, and never one in place of
 the other. The protein path's DP is the same recurrence under a
 substitution matrix: ``sw_align_substmat`` is its plain version and
 ``sw_align_protein`` (BLOSUM62, what ``blastx`` calls) decides the same
-way, the kernel being ``ops/protein_cuda.py``'s.
+way, the kernel being ``ops/protein_cuda.py``'s. The amplicon path's DNA
+DP, ``sw_align_dna``, goes to that kernel too, under ``dna_table``.
 
 ``sw_traceback``, ``sw_traceback_ops`` and ``sw_traceback_batch`` are the
 reference's host numpy tracebacks (the CIGARs of the SAM/BAM sink),
@@ -27,6 +28,7 @@ same tie order with the same direction-plane bits and 256 MB chunks.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -67,18 +69,21 @@ def sw_align(
 ) -> DPResult:
     """Plain forward pass: score and exclusive end cell per candidate.
 
-    Columns ``j >= read_len`` leave H and F untouched; rows
-    ``>= ref_len`` are computed but never chosen. Ties go to the lowest
-    ref row within a column and to the earliest column across columns.
+    Columns ``j >= read_len`` leave H and F untouched, so the scan stops
+    at the batch's longest read; rows ``>= ref_len`` are computed but
+    never chosen. Ties go to the lowest ref row within a column and to the
+    earliest column across columns.
     """
     refs = refs.to(torch.int32)
     reads = reads.to(torch.int32)
     dev = reads.device
+    B, R = reads.shape
     match = torch.tensor(params.match, dtype=torch.int32, device=dev)
     mismatch = torch.tensor(params.mismatch, dtype=torch.int32, device=dev)
     return _forward_scan(
         lambda j: torch.where(refs == reads[:, j : j + 1], match, mismatch),
-        reads.shape[1], refs.shape, read_lens, ref_lens, params, dev,
+        int(read_lens.max().clamp(0, R)) if B else 0, refs.shape, read_lens, ref_lens,
+        params, dev,
     )
 
 
@@ -254,6 +259,71 @@ def sw_align_protein(
         from megapath_tpu_torch.ops.protein_cuda import sw_align_substmat_cuda
 
         return sw_align_substmat_cuda(reads, refs, read_lens, ref_lens, subst, params)
+    raise ValueError(f"no DP for tensors on {reads.device}")
+
+
+def dna_table(params: DPParams) -> torch.Tensor:
+    """int32 [5, 5]: ``params.match`` on the diagonal, ``params.mismatch``
+    elsewhere, over the DNA codes 0-3 and ``OFF_TEXT_CODE``. Under it
+    ``sw_align_substmat`` scores a cell as ``sw_align``'s ``refs == read``
+    does for every code the port writes."""
+    n = OFF_TEXT_CODE + 1
+    tab = torch.full((n, n), params.mismatch, dtype=torch.int32)
+    tab.fill_diagonal_(params.match)
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _dna_table_on(params: DPParams, device: torch.device) -> torch.Tensor:
+    """``dna_table(params)`` on ``device``, uploaded once."""
+    return dna_table(params).to(device)
+
+
+def check_dna_codes(reads: torch.Tensor, refs: torch.Tensor) -> None:
+    """Raise on a code above ``OFF_TEXT_CODE``: ``dna_table`` has no row for
+    it, and the kernel would score it 0 where ``sw_align`` scores it
+    ``mismatch`` (or ``match`` against the same code)."""
+    held = [(n, t) for n, t in (("reads", reads), ("refs", refs)) if t.numel()]
+    tops = torch.stack([t.max() for _, t in held]).tolist() if held else []
+    for (name, _), top in zip(held, tops):  # one read-back for both
+        if top > OFF_TEXT_CODE:
+            raise ValueError(f"{name} hold code {top}: the DNA DP takes codes 0-"
+                             f"{OFF_TEXT_CODE}")
+
+
+def sw_align_dna(
+    reads: torch.Tensor,  # uint8 [B, R] read codes 0-3
+    refs: torch.Tensor,  # uint8 [B, W] window codes 0-3 or OFF_TEXT_CODE
+    read_lens: torch.Tensor,  # int32 [B]
+    ref_lens: torch.Tensor,  # int32 [B]
+    params: DPParams = DPParams(),
+    *,
+    max_code: int | None = None,
+) -> DPResult:
+    """The match/mismatch DP of the amplicon path (the JAX package calls
+    ``sw_align``, ``megapath_tpu/ops/dp.py:49``, at ``SSW_PARAMS``) by the
+    tensors' device: the plain ``sw_align`` on the CPU; on a card the
+    substitution-matrix kernel (``ops/protein_cuda.py``, ``csrc/sw_subst.cu``)
+    under ``dna_table(params)``, which is int32 and has no width limit. It
+    never goes to ``sw_align_cuda``, whose int16 cells refuse a span x match
+    over 1023 (a 256 bp span at match 4); it raises on a code above
+    ``OFF_TEXT_CODE`` and on what the kernel does not take, and never falls
+    back to the plain version. The code check reads ``max_code``, the
+    largest code of ``reads`` and ``refs``, where the caller has it from
+    its host arrays (``amplicon.realign.dna_dp``), and else the tensors'
+    maxima, which costs one read-back."""
+    if reads.device.type == "cpu":
+        return sw_align(reads, refs, read_lens, ref_lens, params)
+    if reads.device.type == "cuda":
+        from megapath_tpu_torch.ops.protein_cuda import sw_align_substmat_cuda
+
+        if max_code is None:
+            check_dna_codes(reads, refs)
+        elif max_code > OFF_TEXT_CODE:
+            raise ValueError(f"reads or refs hold code {max_code}: the DNA DP takes codes "
+                             f"0-{OFF_TEXT_CODE}")
+        return sw_align_substmat_cuda(reads, refs, read_lens, ref_lens,
+                                      _dna_table_on(params, reads.device), params)
     raise ValueError(f"no DP for tensors on {reads.device}")
 
 

@@ -2,8 +2,8 @@
 package's (``megapath_tpu.cli``) on the subcommands the earlier CLI
 tests do not reach: ``build-db``, ``sam2cfq``, ``extract``,
 ``genomecov-filter``, ``m8-to-lsam``, ``r2c-to-r2g``, ``cleanup``,
-``bbduk``, ``count-table``, ``m8-cov``, ``maplen-hist`` and the refused
-``amplicon``. The twins of ``tests/test_cli.py``: both CLIs run on the
+``bbduk``, ``count-table``, ``m8-cov`` and ``maplen-hist``
+(``amplicon`` is in ``tests/test_torch_cli_amplicon.py``). The twins of ``tests/test_cli.py``: both CLIs run on the
 same files (or the same standard input, ``-``) and their standard output,
 standard error and files must be byte-equal; the reference goldens are
 checked where the JAX tests use one."""
@@ -83,17 +83,12 @@ def test_every_jax_subcommand_and_flag_exists():
     assert list(port) == list(jax)
     device = repr((["--device"], "device", "cuda", None, False, None))
     for name in jax:
-        assert port[name] - jax[name] == ({device} if name in ("build-index", "build-db", "run")
+        assert port[name] - jax[name] == ({device} if name in ("build-index", "build-db", "run",
+                                                               "amplicon")
                                           else set()), name
         assert jax[name] <= port[name], name
     for name, k in (("build-db", 8), ("build-index", 13)):
         assert repr((["--lut-k"], "lut_k", k, None, False, int)) in port[name]
-
-
-def test_amplicon_refuses_naming_its_item():
-    argv = ["amplicon", "-1", "r1.fq", "-2", "r2.fq", "--target-index", "t/shard0"]
-    with pytest.raises(NotImplementedError, match="A9c"):
-        cli.main(argv)
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,11 @@ import megapath_tpu_torch.pipeline.multik
 import megapath_tpu_torch.pipeline.assembly
 import megapath_tpu_torch.classify.protein
 import megapath_tpu_torch.ops.protein_cuda
+import megapath_tpu_torch.amplicon
+import megapath_tpu_torch.amplicon.debruijn
+import megapath_tpu_torch.amplicon.realign
+import megapath_tpu_torch.pipeline.amplicon
+import megapath_tpu_torch.io.vcf
 import chip_smoke
 
 # the subcommands import their modules when they run: run each host tool
@@ -126,6 +131,18 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(io.StringIO(
     assert open(prefix + ".contigs.fa").read().startswith(">ctg0")
     assert open(prefix + ".r2c.lsam").read()
     assert "694009" in open(prefix + ".nr.lsam.id").read()
+
+# amplicon on the CPU: the planted-truth world's files (chip_smoke phase 16)
+# through build-index and amplicon with a decoy and a taxon index
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stderr(io.StringIO()), \
+        contextlib.redirect_stdout(io.StringIO()):
+    from pathlib import Path
+    cs.write_amp_world_files(Path(d))
+    for argv in cs.amp_world_build_argvs(Path(d)):
+        assert cli.main(argv + ["--device", "cpu"]) == 0
+    prefix = os.path.join(d, "amp")
+    assert cli.main(cs.amp_world_argv(Path(d), prefix) + ["--device", "cpu"]) == 0
+    assert open(prefix + ".vcf").read() == open("tests/fixtures/amplicon_planted.vcf").read()
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("BAD", bad)
@@ -213,6 +230,26 @@ def test_engine_on_cuda_refuses_without_cuda():
     fm = build_fm_index(codes, sa_interval=8, lut_k=4, device=torch.device("cpu"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AlignEngine(ref, fm, AlignParams(), device=torch.device("cuda"))
+
+
+def test_dna_dp_on_cuda_refuses_without_cuda():
+    """The amplicon path's DNA DP (``sw_align_dna`` through
+    ``amplicon.realign.dna_dp``) on ``cuda`` without a card raises and
+    launches nothing; it never runs the plain version instead."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card path")
+    from megapath_tpu_torch.amplicon import realign
+    from megapath_tpu_torch.ops import protein_cuda
+
+    before = protein_cuda.launches
+    reads, refs, read_lens, ref_lens = (t.numpy() for t in _batch())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        realign.dna_dp(reads, refs, read_lens, ref_lens, realign.SSW_PARAMS,
+                       device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        realign.realign_window("ACGT" * 30, ["ACGTACGTAC" * 5], k=15,
+                               device=torch.device("cuda"))
+    assert protein_cuda.launches == before
 
 
 def test_kernel_build_refuses_without_nvcc():
