@@ -118,12 +118,17 @@ exits non-zero and prints no result line):
                on the card: a random text drawn there, ``check_shard_fits``
                passes, ``build_fm_index`` (sa_interval 8, 8-mer table) with
                each stage's seconds and peak card memory, at most
-               ``BUILD_BYTES_PER_CHAR`` a character; ``DeviceFM.from_host``
-               and its peak; 2,048 exact 100 bp read ends planted at known
-               positions through ``device_seed_pipeline_loc`` (walk and
-               locate launched, each read end's positions hold its own);
-               ``locate`` against its plain version on those rows, timed
-               beside its chain floor. No file is written.
+               ``BUILD_BYTES_PER_CHAR`` a character; a lazy engine's first
+               commit (``DeviceFM.from_host`` and the text) split into host
+               packing and upload, its peak and the bytes it holds, then
+               one evict -> commit round as the rotation makes it each
+               batch (upload alone), and the rotation's cost a batch
+               derived for 125 such shards; 2,048 exact 100 bp read ends
+               planted at known positions through
+               ``device_seed_pipeline_loc`` (walk and locate launched, each
+               read end's positions hold its own); ``locate`` against its
+               plain version on those rows, timed beside its chain floor.
+               No file is written.
 13. db      -- ``build-db`` on the card: the world's NT FASTA (less the
                taxon ``DB_EXCLUDE``, which filterDB drops), a small UniVec
                FASTA and the world's human FASTA, curated against the mini
@@ -181,6 +186,22 @@ exits non-zero and prints no result line):
                the JAX CLI's record (``tests/fixtures/
                torch_amplicon_records.json``); both runs launch dp_full and
                sw_subst.
+17. rotation -- shard placement and wave rotation (``MegaPathPipeline(
+               devices=)``, ``run --devices N``) on the one card: phase 9's
+               world through ``devices=[cuda:0]`` (the two NT shards rotate
+               in waves of one: peak NT residency 1, counted through
+               ``commit``, none resident after) and ``devices=[cuda:0,
+               cuda:0]`` (both resident, aligned from the pool), both equal
+               to the JAX pipeline's record with equal launch counts;
+               phase 13's build-db shards through ``run --devices 1``
+               (== ``torch_db_records.json``); phase 10's community through
+               ``build-index --shard-bp`` into 4 NT shards, its 50,000
+               pairs and phase 7's 20,000 as gzip FASTQ through ``run
+               --batch-size 20000 --devices 1`` (4 batches x 4 shards = 16
+               commits) and ``run --batch-size 20000`` (resident): reports
+               and LSAM.id files byte-equal, launch counts equal; the
+               rotating run's per-batch split (commit, align, evict), its
+               commits' host packing and upload, both runs' card peaks.
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -950,9 +971,11 @@ def pairs_digest(pairs) -> str:
     return h.hexdigest()
 
 
-def cascade_pipeline(dev: torch.device, device_seeding: bool) -> MegaPathPipeline:
+def cascade_pipeline(dev: torch.device, device_seeding: bool,
+                     devices=None) -> MegaPathPipeline:
     """The port's pipeline over the real-soap4 cascade fixture's two shards
-    (``tests/test_cascade_parity.py``'s configuration)."""
+    (``tests/test_cascade_parity.py``'s configuration), placed over
+    ``devices`` when given."""
     def shard(path):
         ref = pack_fasta_file(path)
         return ref, build_fm_index(ref.codes, sa_interval=8, lut_k=8, device=dev)
@@ -960,7 +983,7 @@ def cascade_pipeline(dev: torch.device, device_seeding: bool) -> MegaPathPipelin
     cfg = PipelineConfig(read_len=80, skip_preprocess=True, skip_human=True,
                          device_seeding=device_seeding)
     return MegaPathPipeline([shard(CASCADE / "shard0.fa"), shard(CASCADE / "shard1.fa")],
-                            mini_taxdb(), config=cfg, device=dev)
+                            mini_taxdb(), config=cfg, devices=devices, device=dev)
 
 
 def cascade_reads():
@@ -985,9 +1008,11 @@ def world_config(device_seeding: bool) -> PipelineConfig:
     return PipelineConfig(read_len=250, max_read_len=250, device_seeding=device_seeding)
 
 
-def world_pipeline(world, dev: torch.device, device_seeding: bool) -> MegaPathPipeline:
+def world_pipeline(world, dev: torch.device, device_seeding: bool,
+                   devices=None) -> MegaPathPipeline:
     """The port's pipeline over ``world_workload``'s shards: bbduk with the
-    TruSeq table, the hg and ribo filters and two NT shards."""
+    TruSeq table, the hg and ribo filters and two NT shards, placed over
+    ``devices`` when given."""
     def shard(seqs):
         ref = pack_fasta([FastqRecord(name, _text(codes), "", desc)
                           for name, desc, codes in seqs])
@@ -996,7 +1021,8 @@ def world_pipeline(world, dev: torch.device, device_seeding: bool) -> MegaPathPi
     return MegaPathPipeline(
         [shard(s) for s in world["nt"]], mini_taxdb(), hg_shard=shard(world["hg"]),
         adapters=build_kmer_ref([TRUSEQ], k=27, hdist=1),
-        config=world_config(device_seeding), ribo_shard=shard(world["ribo"]), device=dev,
+        config=world_config(device_seeding), ribo_shard=shard(world["ribo"]),
+        devices=devices, device=dev,
     )
 
 
@@ -3175,6 +3201,92 @@ def phase_cli(dev: torch.device, smi: str, large) -> dict:
 
 PLANTED_ENDS = 2048  # read ends planted in the default shard
 PLANTED_LEN = 100
+# the shards of a real NT database at the 2.0 Gbp cap
+# (tests/test_shard_rotation.py:3-5): what the rotation's cost is derived for
+NT_DB_SHARDS = 125
+
+
+@contextlib.contextmanager
+def _commit_stages(split: Split):
+    """Time a commit's parts into ``split`` while an engine commits: the
+    host packing of the FM tables (``HostFM.pack``) and of the text's
+    words (``pack_ref_words``), the tables' upload (``HostFM.upload``);
+    the rest of a commit is the text's and the words' upload."""
+    from megapath_tpu_torch.align import engine as engine_mod
+
+    host_fm = seeding_dev.HostFM
+    pack, upload, words = vars(host_fm)["pack"], host_fm.upload, engine_mod.pack_ref_words
+    host_fm.pack = staticmethod(split.wrap("pack tables", host_fm.pack))
+    host_fm.upload = split.wrap("upload tables", upload)
+    engine_mod.pack_ref_words = split.wrap("pack words", words)
+    try:
+        yield
+    finally:
+        host_fm.pack, host_fm.upload, engine_mod.pack_ref_words = pack, upload, words
+
+
+def _commit(engine: AlignEngine) -> None:
+    """What the rotation puts on the card for one shard and one batch: the
+    engine's commit and its packed text words (the walk-state DP's)."""
+    engine.commit()
+    engine._ref_words()
+    torch.cuda.synchronize()
+
+
+def engine_card_bytes(engine: AlignEngine) -> int:
+    """The bytes a committed engine holds on its card: the FM tables, the
+    text codes and the packed text words."""
+    return (engine.dfm.nbytes + engine._ref_dev.numel()
+            + engine._ref_words_dev.numel() * engine._ref_words_dev.element_size())
+
+
+def shard_commits(dev: torch.device, smi: str, codes: np.ndarray, fm) -> "seeding_dev.DeviceFM":
+    """The default shard through a lazy engine's commits, as the rotation
+    makes them: the first commit (``DeviceFM.from_host``'s packing and
+    upload, the text and its packed words) split into host packing and
+    upload beside its card peak, then one evict -> commit round, which
+    uploads what the first packed and packs nothing. Prints both, the
+    bytes on the card and kept on the host, and the rotation's cost a
+    batch derived for NT_DB_SHARDS shards. Returns the engine's tables."""
+    n = len(codes)
+    ref = PackedReference(codes, ["shard2g"], [""], np.array([0, n], np.int64),
+                          np.zeros((0, 2), np.int64))
+    engine = AlignEngine(ref, fm, AlignParams(), device=dev, device_seeding=True,
+                         lazy_device=True)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first, again = Split(), Split()
+    with _commit_stages(first):
+        first.wrap("commit", _commit)(engine)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    on_card = engine_card_bytes(engine)
+    engine.evict()
+    torch.cuda.synchronize()
+    evicted = torch.cuda.memory_allocated(dev) - base
+    with _commit_stages(again):
+        again.wrap("commit", _commit)(engine)
+    f, a = first.t, again.t
+    first_s, again_s = first.t["commit"], again.t["commit"]
+    if set(a) - {"commit", "upload tables"}:
+        raise AssertionError(f"[shard] the re-commit packed on the host: {dict(a)}")
+    host = engine._host_fm
+    kept = (host.rows.nbytes + host.mark_rows.nbytes + host.sa_sampled.nbytes
+            + engine._host_words.nbytes)
+    pack_s = f["pack tables"] + f["pack words"]
+    print(f"[shard] first commit of the {n} bp shard (DeviceFM.from_host and the text): "
+          f"{first_s:.3f} s = host packing {pack_s:.3f} s (tables {f['pack tables']:.3f}, "
+          f"text words {f['pack words']:.3f}) + upload {first_s - pack_s:.3f} s (tables "
+          f"{f['upload tables']:.3f}, text and words {first_s - pack_s - f['upload tables']:.3f}"
+          f"); card peak {peak / 2**30:.2f} GiB, {on_card} bytes held ({on_card / n:.3f} "
+          f"a character); after evict {evicted} bytes [{smi}]")
+    print(f"[shard] re-commit after evict, as the rotation makes it each batch: {again_s:.3f} s "
+          f"= tables {a['upload tables']:.3f} s + text and words "
+          f"{again_s - a['upload tables']:.3f} s, all upload, nothing packed; the engine keeps "
+          f"{kept} bytes ({kept / 2**30:.2f} GiB, {kept / n:.3f} a character) packed on the "
+          f"host for it. Derived, not measured: {NT_DB_SHARDS} such shards rotate through one "
+          f"card in {NT_DB_SHARDS * again_s:.1f} s a batch ({NT_DB_SHARDS * first_s:.1f} s if "
+          f"each re-commit packed again) [{smi}]")
+    return engine.dfm
 
 
 def host_available_gib() -> float:
@@ -3233,13 +3345,7 @@ def phase_shard(dev: torch.device, smi: str, lat: dict) -> float:
                              f"the {shard_mod.BUILD_BYTES_PER_CHAR} check_shard_fits assumes")
     gc.collect()
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t = time.perf_counter()
-    dfm = seeding_dev.DeviceFM.from_host(fm, dev)
-    torch.cuda.synchronize()
-    print(f"[shard] DeviceFM.from_host: {time.perf_counter() - t:.3f} s, card peak "
-          f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**30:.2f} GiB")
+    dfm = shard_commits(dev, smi, codes, fm)
     # exact read ends planted at known positions: each must be located there
     rng = np.random.default_rng(2048)
     at = rng.integers(0, n - PLANTED_LEN, PLANTED_ENDS)
@@ -3765,6 +3871,245 @@ def phase_amplicon(dev: torch.device, smi: str) -> tuple:
     return secs, launched
 
 
+# ----------------------------------------------------------------------
+# phase 17: shard placement and wave rotation (MegaPathPipeline(devices=),
+# run --devices N) on one card
+# ----------------------------------------------------------------------
+# the community's NT shard cap in the rotation's realistic part: 7 of its
+# 25 genomes of 400 kbp a shard, 4 shards
+ROTATION_SHARD_BP = 2_800_000
+ROTATION_SHARDS = 4
+ROTATION_BATCH = 20_000
+
+
+def _count_residency(pipe: MegaPathPipeline) -> dict:
+    """After every NT commit, how many NT engines are resident, as
+    ``tests/test_shard_rotation.py`` counts them. Returns the dict that
+    holds the peak and the number of commits."""
+    peak = {"peak": 0, "commits": 0}
+    for eng in pipe.nt_engines:
+        def counting(eng=eng, orig=eng.commit):
+            orig()
+            peak["commits"] += 1
+            peak["peak"] = max(peak["peak"], sum(e.committed for e in pipe.nt_engines))
+        eng.commit = counting
+    return peak
+
+
+def rotation_world(dev: torch.device, smi: str) -> None:
+    """Phase 9's world through ``MegaPathPipeline(devices=[dev])``, device
+    seeding: the two NT shards rotate in waves of one (peak residency 1,
+    counted through commit; nothing resident after), then through
+    ``devices=[dev, dev]``: both resident and aligned from the pool. Both
+    equal the JAX pipeline's record, with the same launch counts."""
+    want = _pipeline_records()["world"]["device_seeding"]
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if pairs_digest(world["pairs"]) != _pipeline_records()["world"]["input_sha256"]:
+        raise AssertionError("[rotation] the world's inputs differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    recs = fastq_records(world["pairs"])
+    counts_of = {}
+    for devices, tag in (([dev], "waves of one"), ([dev, dev], "resident, from the pool")):
+        pipe = world_pipeline(world, dev, True, devices=devices)
+        waved = len(devices) < len(pipe.nt_engines)
+        if pipe._wave_shards != waved or pipe._pool is None:
+            raise AssertionError(f"[rotation] world, {tag}: not placed as asked")
+        residency = _count_residency(pipe)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.run_records(*recs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        pipe.close()
+        counts = counts_of[tag] = read_counts()
+        _require_launches("rotation world", counts, ("dp_full", "mmp_seed", "locate"))
+        bad = record_diff(pipeline_record(res), want)
+        resident = sum(e.committed for e in pipe.nt_engines)
+        if waved:
+            if residency != {"peak": 1, "commits": 2} or resident:
+                bad.append(f"residency {residency}, {resident} resident after the run")
+        elif resident != len(pipe.nt_engines):
+            bad.append(f"{resident} NT shards resident")
+        if bad:
+            raise AssertionError(f"[rotation] world, {tag}: {bad}")
+        print(f"[rotation] world, devices={[str(d) for d in devices]} ({tag}): "
+              f"{len(recs[0])} pairs in {dt:.3f} s; NT residency {residency}, {resident} "
+              f"resident after; reports, both LSAM.id digests and the counters equal the JAX "
+              f"pipeline's; launches {counts} [{smi}]")
+    if len(set(map(str, counts_of.values()))) != 1:
+        raise AssertionError(f"[rotation] world: the launch counts differ: {counts_of}")
+
+
+def rotation_db(dev: torch.device, smi: str, d: Path) -> None:
+    """Phase 13's ``build-db`` shards through ``run --devices 1`` from
+    gzip FASTQ: the two shards rotate through the card; the reports and
+    both LSAM.id files equal the JAX CLI's record."""
+    want = _db_records()
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    write_db_files(world, d)
+    _cli(db_build_argv(d), dev)
+    zero_counts()
+    run_s, _ = _cli(db_run_argv(d, str(d / "run")) + ["--devices", "1"], dev)
+    counts = read_counts()
+    _require_launches("rotation db", counts, ("dp_full", "mmp_seed", "locate"))
+    got = db_record(d, str(d / "run"))
+    bad = [k for k in ("curated_sha256", "shards") if got[k] != want[k]]
+    bad += [(k, *text_diff(got["run"][k], want["run"][k])) for k in ("report", "ra_report")
+            if got["run"][k] != want["run"][k]]
+    bad += [k for k in ("lsam_sha256", "ra_lsam_sha256") if got["run"][k] != want["run"][k]]
+    if bad:
+        raise AssertionError(f"[rotation] run --devices 1 on build-db's shards: {bad}")
+    print(f"[rotation] run --devices 1 on build-db's {DB_SHARDS} shards: {run_s:.3f} s; "
+          f"both reports and LSAM.id files equal the JAX CLI's record; launches {counts} "
+          f"[{smi}]")
+
+
+class _RotationProbe:
+    """Every NT engine call of a run, timed (each bracketed by
+    torch.cuda.synchronize): commit (split into host packing and upload),
+    align_pairs, evict; and the card's reserved memory after each evict."""
+
+    def __init__(self):
+        self.calls = []  # (kind, seconds) in call order
+        self.split = Split()
+        self.reserved = []
+
+    @contextlib.contextmanager
+    def timing(self):
+        orig = {k: getattr(AlignEngine, k) for k in ("commit", "align_pairs", "evict")}
+
+        def timed(kind):
+            def run(eng, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return orig[kind](eng, *a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.calls.append((kind, time.perf_counter() - t))
+                    if kind == "evict":
+                        self.reserved.append(torch.cuda.memory_reserved())
+            return run
+
+        for k in orig:
+            setattr(AlignEngine, k, timed(k))
+        try:
+            with _commit_stages(self.split):
+                yield
+        finally:
+            for k, fn in orig.items():
+                setattr(AlignEngine, k, fn)
+
+    def batches(self, n_shards: int) -> list:
+        """{commit, align, evict} seconds of each batch: a batch commits,
+        aligns and evicts every shard once."""
+        out, cur, n_ev = [], collections.Counter(), 0
+        for kind, sec in self.calls:
+            cur[kind] += sec
+            if kind == "evict":
+                n_ev += 1
+                if n_ev % n_shards == 0:
+                    out.append(dict(cur))
+                    cur = collections.Counter()
+        return out
+
+
+def rotation_realistic(dev: torch.device, smi: str, human, d: Path) -> None:
+    """Phase 10's community through ``build-index --shard-bp`` into
+    ROTATION_SHARDS NT shards, its 50,000 pairs and phase 7's 20,000 as
+    gzip FASTQ; ``run --batch-size 20000 --devices 1`` (4 batches x 4
+    shards = 16 commits through one card) and ``run --batch-size 20000``
+    (every shard resident) on the same files, no human index. Both runs'
+    reports and LSAM.id files must be byte-equal, and their launch counts
+    equal. Prints the rotating run's per-batch split (commit, align,
+    evict), the commit's host packing and upload, and both runs' card
+    peaks (allocated and reserved)."""
+    want = _cli_records()["e2e"]
+    genomes, pairs = e2e_workload()
+    if pairs_digest(pairs) != want["input_sha256"]:
+        raise AssertionError("[rotation] the community's reads differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    write_e2e_files(d, genomes, pairs + human)
+    build_s, _ = _cli(["build-index", d / "community.fa", d / "nt" / "nt", *E2E_INDEX_ARGS,
+                       "--shard-bp", ROTATION_SHARD_BP], dev)
+    shards = [d / "nt" / f"shard{i}" for i in range(ROTATION_SHARDS)]
+    if sorted((d / "nt").glob("shard*.fm.npz")) != [Path(f"{p}.fm.npz") for p in shards]:
+        raise AssertionError(f"[rotation] build-index wrote {sorted((d / 'nt').glob('*'))}")
+    n_in = len(pairs) + len(human)
+    base = ["run", "-1", d / "r1.fq.gz", "-2", d / "r2.fq.gz", "--nt-index", *shards,
+            "--nodes", d / "nodes.dmp", "--names", d / "names.dmp", "--acc2tid",
+            d / "acc2tid.map", "-L", "100", "--batch-size", ROTATION_BATCH]
+    runs = {}
+    for tag, extra in (("rotating", ["--devices", "1"]), ("resident", [])):
+        probe = _RotationProbe()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        with probe.timing():
+            dt, err = _cli(base + ["-p", d / tag] + extra, dev)
+        counts = read_counts()
+        _require_launches(f"rotation {tag}", counts, ("dp_full", "mmp_seed", "locate"))
+        runs[tag] = dict(s=dt, counts=counts, probe=probe, stages=_stage_seconds(err),
+                         peak=torch.cuda.max_memory_allocated(dev),
+                         reserved=torch.cuda.max_memory_reserved(dev))
+    bad = [suf for suf in (".nt.report", ".nt.ra.report", ".nt.lsam.id", ".nt.ra.lsam.id")
+           if (d / f"rotating{suf}").read_bytes() != (d / f"resident{suf}").read_bytes()]
+    if runs["rotating"]["counts"] != runs["resident"]["counts"]:
+        bad.append(f"launch counts {runs['rotating']['counts']} vs {runs['resident']['counts']}")
+    probe = runs["rotating"]["probe"]
+    batches = probe.batches(ROTATION_SHARDS)
+    n_batches = -(-n_in // ROTATION_BATCH)
+    kinds = collections.Counter(k for k, _ in probe.calls)
+    if len(batches) != n_batches or kinds["commit"] != n_batches * ROTATION_SHARDS:
+        bad.append(f"{len(batches)} batches, calls {dict(kinds)}")
+    if bad:
+        raise AssertionError(f"[rotation] the rotating and resident runs differ: {bad}")
+    sp = probe.split.t
+    print(f"[rotation] realistic: build-index of the community into {ROTATION_SHARDS} shards "
+          f"(--shard-bp {ROTATION_SHARD_BP}) {build_s:.3f} s; {n_in} pairs x 100 bp as gzip "
+          f"FASTQ in {n_batches} batches of up to {ROTATION_BATCH} [{smi}]")
+    for tag in ("rotating", "resident"):
+        r = runs[tag]
+        print(f"[rotation] realistic, run --batch-size {ROTATION_BATCH}"
+              f"{' --devices 1' if tag == 'rotating' else ''} ({tag}): {r['s']:.3f} s, "
+              f"StageTimer " + ", ".join(f"{k} {v:.2f} s" for k, v in r["stages"].items())
+              + f"; NT calls {dict(collections.Counter(k for k, _ in r['probe'].calls))}; "
+              f"card peak allocated {r['peak'] / 2**20:.1f} MiB, reserved "
+              f"{r['reserved'] / 2**20:.1f} MiB; launches {r['counts']}")
+    for i, b in enumerate(batches):
+        print(f"[rotation] rotating batch {i}: commit {b.get('commit', 0.0):.3f} s, align "
+              f"{b.get('align_pairs', 0.0):.3f} s, evict {b.get('evict', 0.0):.4f} s "
+              f"({ROTATION_SHARDS} shards)")
+    res = probe.reserved
+    print(f"[rotation] the rotating run's {kinds['commit']} commits: host packing "
+          f"{sp['pack tables'] + sp['pack words']:.3f} s (tables {sp['pack tables']:.3f}, words "
+          f"{sp['pack words']:.3f}; the first batch's only), tables' upload "
+          f"{sp['upload tables']:.3f} s; card memory reserved after each evict (MiB) "
+          f"{[round(r / 2**20, 1) for r in res]}: after the first batch it "
+          f"{'climbs' if max(res) > res[ROTATION_SHARDS - 1] else 'stays flat'}; both runs' "
+          f"reports and LSAM.id files byte-equal, launch counts equal [{smi}]")
+
+
+def phase_rotation(dev: torch.device, smi: str, human) -> float:
+    """Shard placement and wave rotation on the card: the world through
+    ``devices=`` in waves of one and resident from the pool, build-db's
+    shards through ``run --devices 1``, and the realistic rotation of 4
+    community shards through one card against the resident run. Returns
+    the phase's seconds."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rotation_world(dev, smi)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rotation_db(dev, smi, d / "db")
+        rotation_realistic(dev, smi, human, d / "e2e")
+    secs = time.perf_counter() - t_phase
+    print(f"[rotation] the rotation phase took {secs:.1f} s [{smi}]")
+    return secs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3787,6 +4132,7 @@ def main() -> int:
     counts = phase_pipeline_large(dev, smi, large)
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
     phase_cli(dev, smi, large)
+    human = human_pairs(*large[2])
     del large
     shard_s = phase_shard(dev, smi, lat)
     db_s = phase_db(dev, smi)
@@ -3794,10 +4140,11 @@ def main() -> int:
     prot_s, prot_subst = phase_protein(dev, smi)
     launches["sw_subst"] = asm_subst + prot_subst
     amp_s, launches["sw_dna"] = phase_amplicon(dev, smi)
+    rot_s = phase_rotation(dev, smi, human)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
           f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s, the amplicon "
-          f"phase {amp_s:.1f} s) [{smi}]")
+          f"phase {amp_s:.1f} s, the rotation phase {rot_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

@@ -12,7 +12,10 @@ resident walker matrix. The two paths follow the reference's two paths
 and give its hits on each.
 
 The engine never picks its device: ``device`` is required, and a CUDA
-device with no CUDA present raises.
+device with no CUDA present raises. A ``lazy_device`` engine holds
+nothing on its device until ``commit()``, and its device calls raise until
+then: the pipeline's wave rotation commits it, aligns and ``evict()``s
+it, so a shard reaches the card only through the rotation.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from megapath_tpu_torch.align.seeding import (
     make_walkers_fast,
     mmp_seed,
 )
-from megapath_tpu_torch.align.seeding_dev import DeviceFM, device_seed_pipeline_loc
+from megapath_tpu_torch.align.seeding_dev import DeviceFM, HostFM, device_seed_pipeline_loc
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import COMPLEMENT, PackedReference
 from megapath_tpu_torch.ops.dp import DPParams
@@ -153,6 +156,7 @@ class AlignEngine:
         params: AlignParams,
         device: torch.device,
         device_seeding: bool = False,
+        lazy_device: bool = False,
     ):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -175,7 +179,14 @@ class AlignEngine:
         # streams flip to the direct exact walk
         self.exact_rescue: bool = True
         self._exact_direct = False
-        self.commit()
+        # a lazy engine is re-committed every batch: it keeps what its
+        # first commit packed on the host (HostFM, the packed text words)
+        # so that a re-commit is an upload
+        self.lazy_device = lazy_device
+        self._host_fm: Optional[HostFM] = None
+        self._host_words: Optional[np.ndarray] = None
+        if not lazy_device:
+            self.commit()
 
     def commit(self) -> None:
         """Put this shard's text, and on device seeding its FM tables,
@@ -185,15 +196,36 @@ class AlignEngine:
                 np.ascontiguousarray(self.ref.codes, dtype=np.uint8)
             ).to(self.device)
         if self._device_seeding and self.dfm is None:
-            self.dfm = DeviceFM.from_host(self.fm, self.device)
+            host = self._host_fm or HostFM.pack(self.fm)
+            if self.lazy_device:
+                self._host_fm = host
+            self.dfm = host.upload(self.device)
 
     def evict(self) -> None:
         """Drop the shard's device copies (the host copies stay); the next
-        commit() puts them back."""
+        commit() puts them back. The cross-batch state (``exact_rescue``,
+        the direct exact walk) stays, as the reference's evict keeps it."""
         self._ref_dev = None
         self.dfm = None
         self._ref_words_dev = None
         self._batch_dev = None
+
+    @property
+    def committed(self) -> bool:
+        return self.dfm is not None or self._ref_dev is not None
+
+    def _require_committed(self) -> None:
+        """Commit a non-lazy engine that was evicted; a lazy engine that is
+        not committed raises (only the rotation puts its shard on the
+        device)."""
+        if self._ref_dev is not None and (self.dfm is not None or not self._device_seeding):
+            return
+        if self.lazy_device:
+            raise RuntimeError(
+                f"lazy AlignEngine on {self.device} is not committed: commit() it "
+                "before aligning (MegaPathPipeline's wave rotation does)"
+            )
+        self.commit()
 
     # ------------------------------------------------------------------
     def seed_positions(
@@ -208,7 +240,7 @@ class AlignEngine:
         stays on the device for that batch's DP."""
         mmp = mmp or self.params.mmp
         if self._device_seeding:
-            self.commit()
+            self._require_committed()
             seeds, pre_pos = self._device_seeds_pos(reads, lens, mmp, batch)
         else:
             walkers, wlens = make_walkers_fast(reads, lens)
@@ -263,9 +295,13 @@ class AlignEngine:
 
     def _ref_words(self) -> torch.Tensor:
         if self._ref_words_dev is None:
-            self._ref_words_dev = self._to_dev(
-                pack_ref_words(self.ref.codes).view(np.int32)
-            )
+            self._require_committed()
+            words = self._host_words
+            if words is None:
+                words = pack_ref_words(self.ref.codes).view(np.int32)
+                if self.lazy_device:
+                    self._host_words = words
+            self._ref_words_dev = self._to_dev(words)
         return self._ref_words_dev
 
     def _dp_params(self) -> DPParams:
@@ -290,7 +326,7 @@ class AlignEngine:
         candidate's DNA window length, DV-DPfunctions.cpp:2876-2881,
         2954-2959); defaults to the full ``width``.
         """
-        self.commit()
+        self._require_committed()
         n = reads.shape[0]
         if win_lens is None:
             win_lens = np.full(n, width, dtype=np.int32)
@@ -314,7 +350,7 @@ class AlignEngine:
         r_reads, r_lens, r_starts, r_full_wl, width,
     ):
         """Bucket-pad, run deep_dp_fused, pull the six results at once."""
-        self.commit()
+        self._require_committed()
         n = l_reads.shape[0]
         nb = _bucket(n)
         i32 = np.int32

@@ -39,10 +39,10 @@ MARK_WORD = 4 + WORDS_PER_BLOCK  # the first of a row's 4 mark-bit words
 U32 = 0xFFFFFFFF
 
 
-def _as_i32(a: np.ndarray) -> torch.Tensor:
-    """uint32 numpy array -> int32 tensor of the same bits (the kernels
+def _i32_bits(a: np.ndarray) -> np.ndarray:
+    """uint32 numpy array -> int32 array of the same bits (the kernels
     read them as uint32)."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+    return np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
 
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -91,6 +91,41 @@ class DeviceFM:
     def from_host(cls, fm: FMIndex, device: torch.device) -> "DeviceFM":
         """The tables of ``fm``, packed on the host and copied to
         ``device``."""
+        return HostFM.pack(fm).upload(device)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes these tables hold on their device."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.rows, self.counts, self.lut_lo, self.lut_hi, self.mark_rows,
+            self.sa_sampled) if t is not None)
+
+
+@dataclass
+class HostFM:
+    """``DeviceFM``'s tables packed on the host, before their upload.
+
+    The packing reads the FM index's full-length arrays (``mark_rank`` is
+    8 bytes a character) and costs far more than the upload, so an engine
+    that rotates through its device keeps these after its first commit and
+    re-commits with ``upload`` alone. The arrays the packing makes
+    (``rows``, ``mark_rows``, the int32 ``sa_sampled``) hold ~1.25 bytes a
+    character at sa_interval 8; the rest are views of the index's."""
+
+    n: int
+    primary: int
+    lut_k: int
+    sa_interval: int
+    rows: np.ndarray  # int32 [n_blocks + 1, 16] (uint32 bits)
+    counts: np.ndarray  # int32 [5]
+    lut_lo: Optional[np.ndarray]  # int32 [4^k]
+    lut_hi: Optional[np.ndarray]
+    mark_rows: np.ndarray  # int32 [ceil((n + 1) / 32), 2] (uint32 bits)
+    sa_sampled: np.ndarray  # int32 [n_marked]
+
+    @classmethod
+    def pack(cls, fm: FMIndex) -> "HostFM":
+        """The kernels' layout of ``fm``'s tables (see ``DeviceFM``)."""
         n = int(fm.n)
         if n >= 2**31 - 1:
             raise ValueError(f"device seeding needs a shard < 2^31 - 1 chars (got {n})")
@@ -103,22 +138,35 @@ class DeviceFM:
         rows[: len(words), 4:MARK_WORD] = words
         rows[: nb - 1, MARK_WORD:] = _pack_bits(
             np.delete(marked, primary), 4 * (nb - 1)).reshape(nb - 1, 4)
-        dev = torch.device(device)
         lut_lo = lut_hi = None
         if fm.lut_k:
-            lut_lo = _as_i32(fm.lut_lo).to(dev)
-            lut_hi = _as_i32(fm.lut_hi).to(dev)
+            lut_lo = _i32_bits(fm.lut_lo)
+            lut_hi = _i32_bits(fm.lut_hi)
         return cls(
             n=n,
             primary=primary,
             lut_k=int(fm.lut_k),
             sa_interval=int(fm.sa_interval),
-            rows=_as_i32(rows).to(dev),
-            counts=torch.from_numpy(np.asarray(fm.counts, np.int32)).to(dev),
+            rows=rows.view(np.int32),
+            counts=np.asarray(fm.counts, np.int32),
             lut_lo=lut_lo,
             lut_hi=lut_hi,
-            mark_rows=torch.from_numpy(pack_mark_rows(fm.mark_rank, marked)).to(dev),
-            sa_sampled=torch.from_numpy(np.asarray(fm.sa_sampled, np.int32)).to(dev),
+            mark_rows=pack_mark_rows(fm.mark_rank, marked),
+            sa_sampled=np.asarray(fm.sa_sampled, np.int32),
+        )
+
+    def upload(self, device: torch.device) -> DeviceFM:
+        """These tables copied to ``device``, nothing packed again."""
+        dev = torch.device(device)
+
+        def put(a):
+            return None if a is None else torch.from_numpy(a).to(dev)
+
+        return DeviceFM(
+            n=self.n, primary=self.primary, lut_k=self.lut_k, sa_interval=self.sa_interval,
+            rows=put(self.rows), counts=put(self.counts), lut_lo=put(self.lut_lo),
+            lut_hi=put(self.lut_hi), mark_rows=put(self.mark_rows),
+            sa_sampled=put(self.sa_sampled),
         )
 
 

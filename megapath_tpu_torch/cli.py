@@ -14,7 +14,12 @@ given, it never runs on the CPU by itself):
                 shards and indexes of ``build-index``
   run           gzip FASTQ (C++ reader) -> bbduk -> human filter ->
                 (ribosome filter) -> NT shards -> SPIKE -> reassign ->
-                Kraken reports; ``-b`` adds the per-shard BAMs and the
+                Kraken reports; ``--devices N`` places the NT shards over
+                N devices (``cuda:0`` .. ``cuda:N-1``, or N places on the
+                one CPU) and, with more shards than N, rotates them
+                through those devices in waves, so ``--devices 1``
+                streams any number of shards through one card; ``-b``
+                adds the per-shard BAMs and the
                 merged, sorted PREFIX.nt.bam; ``-A`` adds the assembly
                 stage: the viral and unmapped pairs through bbnorm and the
                 multi-k assembler (or ``--megahit-bin``) on the host, the
@@ -37,7 +42,7 @@ bbduk. Evaluation tools: count-table, m8-cov, maplen-hist. All run on
 the host.
 
 What the port has not ported parses and then raises NotImplementedError
-naming the ROADMAP item: ``run --devices`` and ``--spmd`` (A10).
+naming the ROADMAP item: ``run --spmd`` (A10b).
 """
 from __future__ import annotations
 
@@ -58,6 +63,28 @@ def _device(name: str):
             f"--device {name}: CUDA is not available; pass --device cpu to run on the host"
         )
     return dev
+
+
+def _devices(n: int, dev):
+    """The placement of ``run --devices N`` on ``--device``'s type: None
+    for 0, ``cuda:0`` .. ``cuda:N-1`` on a card (refused when fewer are
+    visible: the reference takes as many as there are), N places on the
+    one CPU."""
+    import torch
+
+    if n < 0:
+        raise ValueError(f"--devices {n}: the count cannot be negative")
+    if not n:
+        return None
+    if dev.type == "cpu":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(
+            f"--devices {n}: only {have} CUDA device(s) visible; pass --devices {have} "
+            "or fewer (--devices 1 rotates every shard through one card)"
+        )
+    return [torch.device(dev.type, i) for i in range(n)]
 
 
 def _taxdb(args, acc2tid: bool = True):
@@ -141,17 +168,13 @@ def _cmd_build_db(args) -> int:
 
 
 def _cmd_run(args) -> int:
-    if args.devices:
-        raise NotImplementedError(
-            "run --devices: multi-device shard placement is ROADMAP A10; the port "
-            "runs every engine on --device"
-        )
     if args.spmd:
-        raise NotImplementedError("run --spmd: the one-program SPMD backend is ROADMAP A10")
+        raise NotImplementedError("run --spmd: the one-program SPMD backend is ROADMAP A10b")
     from megapath_tpu_torch.filters.bbduk import build_kmer_ref, load_adapters
     from megapath_tpu_torch.pipeline import MegaPathPipeline, PipelineConfig
 
     dev = _device(args.device)
+    devices = _devices(args.devices, dev)
     db = _taxdb(args)
     nt_shards = [load_shard(p) for p in args.nt_index]
     hg = load_shard(args.hg_index) if args.hg_index else None
@@ -180,11 +203,14 @@ def _cmd_run(args) -> int:
         )
     pipe = MegaPathPipeline(
         nt_shards, db, hg_shard=hg, adapters=adapters, config=cfg,
-        ribo_shard=ribo, device=dev,
+        ribo_shard=ribo, devices=devices, device=dev,
     )
-    res = pipe.run_files(args.r1, args.r2, args.prefix,
-                         assembly=args.assembly, megahit_bin=args.megahit_bin,
-                         protein_db=prot_db)
+    try:
+        res = pipe.run_files(args.r1, args.r2, args.prefix,
+                             assembly=args.assembly, megahit_bin=args.megahit_bin,
+                             protein_db=prot_db)
+    finally:
+        pipe.close()
     print(
         f"[run] pairs in={res.n_input_pairs} preprocessed={res.n_after_preprocess} "
         f"non-human={res.n_after_human} non-ribo={res.n_after_ribo} "
@@ -488,8 +514,7 @@ def main(argv=None) -> int:
                    help="torch device that builds the indexes (cuda or cpu)")
     b.set_defaults(fn=_cmd_build_db)
 
-    r = sub.add_parser("run", help="run the detection pipeline (--devices, --spmd "
-                                   "refused)")
+    r = sub.add_parser("run", help="run the detection pipeline (--spmd refused)")
     r.add_argument("-1", dest="r1", required=True)
     r.add_argument("-2", dest="r2", required=True)
     r.add_argument("-p", dest="prefix", default="megapath")
@@ -516,8 +541,9 @@ def main(argv=None) -> int:
                    help="protein FASTA (NR-style, accessions 0x1-joined) "
                         "for the stage-4.1 in-process blastx")
     r.add_argument("--devices", type=int, default=0,
-                   help="distribute NT shard engines over N devices "
-                        "(ROADMAP A10: refused unless 0)")
+                   help="distribute NT shard engines over the first N "
+                        "devices of --device's type, rotating them in waves "
+                        "when there are more shards (0 = single device)")
     r.add_argument("--batch-size", type=int, default=500_000,
                    help="streaming read-pair batch size (SOAP4.cpp:206)")
     r.add_argument("-b", "--bam", action="store_true",
@@ -525,7 +551,7 @@ def main(argv=None) -> int:
                         "PREFIX.nt.bam (soap4 -b -o + samtools, "
                         "runMegaPath.sh:199-216)")
     r.add_argument("--spmd", action="store_true",
-                   help="the one-program SPMD backend (ROADMAP A10: refused)")
+                   help="the one-program SPMD backend (ROADMAP A10b: refused)")
     r.add_argument("--device", default="cuda",
                    help="torch device of every engine (cuda or cpu)")
     r.set_defaults(fn=_cmd_run)

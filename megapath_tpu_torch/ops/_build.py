@@ -6,7 +6,9 @@ C interface, ``build/kernels/libmegapath_kernels.so`` under the checkout
 (``build/`` is git-ignored). Each source compiles in its own nvcc
 process, all started together, and one more nvcc links the objects. The
 library is rebuilt when a source is newer than it. Nothing is built or
-loaded when this module is imported.
+loaded when this module is imported. ``load`` and ``count`` may be called
+from several threads at once (the pipeline aligns its shards from a
+thread pool).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -35,6 +38,8 @@ NVCC_FLAGS = (
 EXTRA_FLAGS = {"mmp_seed.cu": ("-fmad=false",)}
 
 _lib: Optional[ctypes.CDLL] = None
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -131,9 +136,21 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if needed, with every entry
-    point's argument and result types declared."""
+    point's argument and result types declared. Threads that call it at
+    once wait for one build and one load."""
     global _lib
     if _lib is None:
-        build()
-        _lib = bind(ctypes.CDLL(str(LIB_PATH)))
+        with _load_lock:
+            if _lib is None:
+                build()
+                _lib = bind(ctypes.CDLL(str(LIB_PATH)))
     return _lib
+
+
+def count(module, name: str) -> None:
+    """Add one to the launch count ``module.name``. A bare ``+= 1`` on a
+    module global can lose counts when pool threads launch at once; the
+    counts show that a path went through its kernels, so they must be
+    exact. Resetting a count is a plain assignment."""
+    with _count_lock:
+        setattr(module, name, getattr(module, name) + 1)

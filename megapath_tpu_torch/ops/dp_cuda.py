@@ -14,6 +14,7 @@ back), allocate the outputs and raise when the launch is refused.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -127,7 +128,6 @@ def sw_align_full_cuda(
     params: DPParams = DPParams(),
 ) -> DPFullResult:
     """Forward + backward DP on the card: (score, end, start) per row."""
-    global launches
     lib, C, R, W = _check_batch(reads, refs, read_lens, ref_lens, params)
     dev = reads.device
     # the kernel writes every row of all five outputs
@@ -144,7 +144,7 @@ def sw_align_full_cuda(
         )
     if err != 0:
         raise RuntimeError(f"mp_dp_full launch failed: CUDA error {err}")
-    launches += 1
+    _build.count(sys.modules[__name__], "launches")
     return DPFullResult(*out)
 
 
@@ -156,7 +156,6 @@ def sw_align_cuda(
     params: DPParams = DPParams(),
 ) -> DPResult:
     """Forward DP alone on the card: (score, end_ref, end_read) per row."""
-    global fwd_launches
     lib, C, R, W = _check_batch(reads, refs, read_lens, ref_lens, params)
     dev = reads.device
     out = torch.empty((3, C), dtype=torch.int32, device=dev)
@@ -172,5 +171,5 @@ def sw_align_cuda(
         )
     if err != 0:
         raise RuntimeError(f"mp_dp_fwd launch failed: CUDA error {err}")
-    fwd_launches += 1
+    _build.count(sys.modules[__name__], "fwd_launches")
     return DPResult(*out)

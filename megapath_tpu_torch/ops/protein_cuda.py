@@ -18,6 +18,8 @@ launch is refused. The grid is the card's resident blocks
 from __future__ import annotations
 
 import ctypes
+import sys
+import threading
 
 import torch
 
@@ -65,24 +67,28 @@ def schedule(read_lens: torch.Tensor, ref_lens: torch.Tensor, R: int, W: int,
 
 
 _occupancy = {}
+_occupancy_lock = threading.Lock()
 
 
 def occupancy(dev: torch.device) -> dict:
     """What the kernel gets on ``dev``'s card (``mp_sw_subst_occupancy``):
     registers a thread, static shared memory a block, resident blocks an
-    SM, SMs, local memory a thread (spills) and warps a block."""
+    SM, SMs, local memory a thread (spills) and warps a block. Asked once a
+    card, also when several threads ask at once."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _build.load()
     key = (index, id(lib))
-    if key not in _occupancy:
-        out = (ctypes.c_int * 6)()
-        with torch.cuda.device(index):
-            err = lib.mp_sw_subst_occupancy(out)
-        if err != 0:
-            raise RuntimeError(f"mp_sw_subst_occupancy failed: CUDA error {err}")
-        keys = ("registers", "shared_bytes", "blocks_per_sm", "sms", "local_bytes", "warps")
-        _occupancy[key] = dict(zip(keys, out))
-    return _occupancy[key]
+    with _occupancy_lock:
+        if key not in _occupancy:
+            out = (ctypes.c_int * 6)()
+            with torch.cuda.device(index):
+                err = lib.mp_sw_subst_occupancy(out)
+            if err != 0:
+                raise RuntimeError(f"mp_sw_subst_occupancy failed: CUDA error {err}")
+            keys = ("registers", "shared_bytes", "blocks_per_sm", "sms", "local_bytes",
+                    "warps")
+            _occupancy[key] = dict(zip(keys, out))
+        return _occupancy[key]
 
 
 def sw_align_substmat_cuda(
@@ -97,7 +103,6 @@ def sw_align_substmat_cuda(
     """The substitution-matrix DP on the card: (score, end_ref, end_read)
     per candidate, equal to ``ops.dp.sw_align_substmat``. ``long_factor``
     sets which candidates take a whole block (``schedule``)."""
-    global launches
     dev = reads.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA substitution DP kernel needs CUDA tensors, got {dev}")
@@ -136,5 +141,5 @@ def sw_align_substmat_cuda(
         )
     if err != 0:
         raise RuntimeError(f"mp_sw_subst launch failed: CUDA error {err}")
-    launches += 1
+    _build.count(sys.modules[__name__], "launches")
     return DPResult(*out)

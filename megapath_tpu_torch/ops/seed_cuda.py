@@ -11,6 +11,7 @@ their inputs, allocate the outputs and raise when a launch is refused.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -62,7 +63,6 @@ def mmp_seed_cuda(
 ) -> DeviceSeeds:
     """The seed walk on the card: one thread per read end (rows w and
     W/2 + w) when W is even, one per walker otherwise."""
-    global walk_launches
     dev = walkers.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA seed walk needs CUDA tensors, got {dev}")
@@ -97,7 +97,7 @@ def mmp_seed_cuda(
         )
     if err != 0:
         raise RuntimeError(f"mp_mmp_seed launch failed: CUDA error {err}")
-    walk_launches += 1
+    _build.count(sys.modules[__name__], "walk_launches")
     return DeviceSeeds(*out, n_seeds)
 
 
@@ -105,7 +105,6 @@ def locate_cuda(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
     """Text positions (int32) of full-BWT rows (int32, each in [0, n]) on
     the card; -1 where no mark lies within sa_interval + 1 steps. The
     kernel reads each step's mark from the occ row's mark words."""
-    global locate_launches
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA locate needs CUDA tensors, got {dev}")
@@ -125,5 +124,5 @@ def locate_cuda(dfm: DeviceFM, rows: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"mp_locate launch failed: CUDA error {err}")
-    locate_launches += 1
+    _build.count(sys.modules[__name__], "locate_launches")
     return out

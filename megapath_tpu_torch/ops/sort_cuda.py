@@ -11,6 +11,7 @@ which ``index/suffix.py`` takes for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -26,7 +27,6 @@ def sort_pairs_cuda(keys: list, vals: list, src: int, end_bit: int) -> int:
     ``vals[src]`` (int32) with it, stably, using ``keys[1 - src]`` and
     ``vals[1 - src]`` as the other halves of CUB's double buffers.
     Returns the index in ``keys``/``vals`` of the sorted pairs."""
-    global sort_launches
     dev = keys[src].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA pair sort needs CUDA tensors, got {dev}")
@@ -55,5 +55,5 @@ def sort_pairs_cuda(keys: list, vals: list, src: int, end_bit: int) -> int:
         )
     if err != 0 or selector.value not in (0, 1):
         raise RuntimeError(f"mp_sort_pairs launch failed: CUDA error {err}")
-    sort_launches += 1
+    _build.count(sys.modules[__name__], "sort_launches")
     return src if selector.value == 0 else 1 - src

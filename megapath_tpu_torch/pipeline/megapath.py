@@ -2,12 +2,12 @@
 
 The port of ``megapath_tpu/pipeline/megapath.py`` onto the port's
 engines: preprocess (bbduk) -> human filter -> optional ribosome filter ->
-NT alignment over the shards, one after another -> SPIKE coverage filter
--> taxid lookup -> reassignment -> Kraken-style reports. Every engine is
-the port's ``AlignEngine`` on one explicit torch device, so on a card the
-hg, ribo and NT stages run the port's kernels (the seed walk, the SA
-locate and the DP). Everything after the engines is host code in both
-packages and stays on the host here.
+NT alignment over the shards -> SPIKE coverage filter -> taxid lookup ->
+reassignment -> Kraken-style reports. Every engine is the port's
+``AlignEngine`` on one explicit torch device, so on a card the hg, ribo
+and NT stages run the port's kernels (the seed walk, the SA locate and the
+DP). Everything after the engines is host code in both packages and stays
+on the host here.
 
 Stage semantics follow the reference's runMegaPath.sh:105-265; the
 inter-stage LSAM text round-trips are internalized. The reports and the
@@ -27,14 +27,23 @@ the protein remap (blastx, its DP on the pipeline's device), writing
 ``PREFIX.nr.report`` byte-identical to the JAX pipeline's
 (``tests/test_torch_cli_protein.py``).
 
+``devices=`` places the NT shards' engines round-robin over a list of
+devices and dispatches their alignments from a thread pool. With more
+shards than devices the NT engines are lazy and ``_align_shards`` rotates
+them through the devices in waves: commit a wave of ``len(devices)``
+shards, align it, evict it. So ``devices=[cuda:0]`` streams any number
+of shards through one card; the outputs do not depend on the placement
+(``tests/test_torch_rotation.py``).
+
 Left out, and refused with NotImplementedError naming the ROADMAP item
-that ports them: the one-program SPMD backend (``PipelineConfig.spmd``)
-and multi-device shard placement (``devices=``, A10).
+that ports it: the one-program SPMD backend (``PipelineConfig.spmd``,
+A10b).
 """
 
 from __future__ import annotations
 
 import contextlib
+import concurrent.futures
 import glob
 import os
 import queue
@@ -104,7 +113,7 @@ class PipelineConfig:
     # PREFIX.nt.bam (soap4 -b + samtools, runMegaPath.sh:199-216)
     bam: bool = False
     # the reference package's one-program SPMD backend for stage 2:
-    # refused until ROADMAP A10
+    # refused until ROADMAP A10b
     spmd: bool = False
     # reference-exact results (AlignEngine.exact_rescue): pairs that
     # end with a zero-hit end re-run through the undialed walk, making
@@ -175,27 +184,52 @@ class MegaPathPipeline:
         timer: Optional[StageTimer] = None,
     ):
         """Every engine (hg, ribo, each NT shard) is the port's
-        ``AlignEngine`` on ``device``, its shard committed there once.
-        ``timer``, when given, records the stages of ``run_records``
-        (bbduk, hg, ribo, nt, tail) on the host clock."""
+        ``AlignEngine``. Without ``devices`` each is on ``device``, its
+        shard committed there once. ``devices`` (torch devices or their
+        names, each of ``device``'s type) places the NT engines round-robin
+        over the list, the hg engine on ``devices[0]`` and the ribo engine
+        on ``devices[len // 2]``, as the reference places them; with more
+        NT shards than devices the NT engines are lazy and rotate through
+        the devices in waves (``_align_shards``). The assembly stage and
+        the protein remap run on ``device``. ``timer``, when given, records
+        the stages of ``run_records`` (bbduk, hg, ribo, nt, tail) on the
+        host clock."""
         self.cfg = config or PipelineConfig()
-        if devices is not None:
-            raise NotImplementedError(
-                "devices=: multi-device shard placement and wave rotation "
-                "are ROADMAP A10; the port runs every engine on one device"
-            )
         if self.cfg.spmd:
             raise NotImplementedError(
-                "PipelineConfig.spmd: the one-program SPMD backend is ROADMAP A10"
+                "PipelineConfig.spmd: the one-program SPMD backend is ROADMAP A10b"
             )
         self.taxdb = taxdb
         self.adapters = adapters
         self.device = torch.device(device)
         self.timer = timer
+        devs = [torch.device(d) for d in devices] if devices else []
+        mixed = sorted({str(d) for d in devs if d.type != self.device.type})
+        if mixed:
+            raise ValueError(
+                f"devices= mixes device types: {mixed} beside device={self.device}; "
+                "every entry must be a device of the same type"
+            )
+        # with more shards than devices, the devices cannot hold every
+        # shard at once: the NT engines stay lazy and _align_shards
+        # rotates them through the devices in waves
+        self._n_devices = len(devs)
+        self._wave_shards = bool(devs) and len(nt_shards) > len(devs)
         nt_params = NT_PARAMS.with_(top_percentage=self.cfg.top_percentage)
-        self.nt_engines = [self._engine(ref, fm, nt_params) for ref, fm in nt_shards]
+        self.nt_engines = [
+            self._engine(ref, fm, nt_params, devs[i % len(devs)] if devs else None,
+                         lazy_device=self._wave_shards)
+            for i, (ref, fm) in enumerate(nt_shards)
+        ]
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        if devs and len(nt_shards) > 1:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(len(nt_shards), len(devs))
+                if self._wave_shards else len(nt_shards),
+                thread_name_prefix="nt-shard",
+            )
         self.hg_engine = (
-            self._engine(hg_shard[0], hg_shard[1], HG_PARAMS)
+            self._engine(hg_shard[0], hg_shard[1], HG_PARAMS, devs[0] if devs else None)
             if hg_shard is not None
             else None
         )
@@ -205,6 +239,7 @@ class MegaPathPipeline:
             self._engine(
                 ribo_shard[0], ribo_shard[1],
                 HG_PARAMS.with_(megapath_mode=2, top_percentage=1.0),
+                devs[len(devs) // 2] if devs else None,
             )
             if ribo_shard is not None
             else None
@@ -225,11 +260,22 @@ class MegaPathPipeline:
             self._species_of.append(sp)
             self._sk_of.append(sk)
 
+    def close(self) -> None:
+        """Shut down the thread pool that aligns the shards (a pipeline
+        without ``devices`` has none); later batches align one shard after
+        another."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
     def _engine(
-        self, ref: PackedReference, fm: FMIndex, params: AlignParams
+        self, ref: PackedReference, fm: FMIndex, params: AlignParams,
+        device: Optional[torch.device] = None, lazy_device: bool = False,
     ) -> AlignEngine:
-        eng = AlignEngine(ref, fm, params, device=self.device,
-                          device_seeding=self.cfg.device_seeding)
+        eng = AlignEngine(ref, fm, params,
+                          device=self.device if device is None else device,
+                          device_seeding=self.cfg.device_seeding,
+                          lazy_device=lazy_device)
         eng.exact_rescue = self.cfg.exact
         return eng
 
@@ -729,15 +775,41 @@ class MegaPathPipeline:
         return best
 
     def _align_shards(self, reads1, lens1, reads2, lens2, n) -> List[BatchHits]:
-        """Stage 2: NT alignment over all shards, one after another on the
-        pipeline's device (the reference's sequential shard cascade,
-        runMegaPath.sh:191-227, with the hit lists merged as arrays)."""
+        """Stage 2: NT alignment over all shards (the reference's shard
+        cascade, runMegaPath.sh:191-227, with the hit lists merged as
+        arrays). Without ``devices`` the shards run one after another on
+        the pipeline's device. With them the shards' alignments go to the
+        thread pool; with more shards than devices in waves of
+        ``len(devices)`` shards, each committed before its alignments and
+        evicted after them, so at most one shard a device is resident."""
         if not n:
             return [BatchHits.empty() for _ in self.nt_engines]
-        return [
-            engine.align_pairs(reads1, lens1, reads2, lens2)
-            for engine in self.nt_engines
-        ]
+        args = (reads1, lens1, reads2, lens2)
+        engines = self.nt_engines
+        if not self._wave_shards:
+            return self._align_wave(engines, args)
+        out: List[BatchHits] = []
+        step = self._n_devices
+        for w0 in range(0, len(engines), step):
+            wave = engines[w0 : w0 + step]
+            try:
+                for eng in wave:
+                    eng.commit()
+                out += self._align_wave(wave, args)
+            finally:
+                for eng in wave:
+                    eng.evict()
+        return out
+
+    def _align_wave(self, engines: List[AlignEngine], args) -> List[BatchHits]:
+        """``align_pairs`` of each engine, from the pool when there is one.
+        Every alignment has ended when this returns or raises: a failed
+        shard's exception comes out of its ``result()``."""
+        if self._pool is None:
+            return [eng.align_pairs(*args) for eng in engines]
+        futs = [self._pool.submit(eng.align_pairs, *args) for eng in engines]
+        concurrent.futures.wait(futs)
+        return [f.result() for f in futs]
 
     def _tail(
         self,

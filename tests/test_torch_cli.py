@@ -270,12 +270,37 @@ def test_cli_records_belong_to_the_workloads():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("flags,item", [(["--devices", "2"], "A10"), (["--spmd"], "A10")])
+@pytest.mark.parametrize("flags,item", [(["--spmd"], "A10")])
 def test_run_refuses_unported_flags(tmp_path, flags, item):
     argv = ["run", "-1", "r1.fq", "-2", "r2.fq", "-p", str(tmp_path / "x"),
             "--nt-index", "nt/shard0", *TAXONOMY, *flags, *CPU]
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("n", [2, 5])
+def test_run_devices_beyond_the_visible_cards_is_refused_before_any_build(
+        tmp_path, monkeypatch, n):
+    """``--devices N`` on ``cuda`` with fewer cards visible raises before
+    an index is read or an engine built (the JAX CLI would take fewer
+    devices without a word); ``--devices -1`` too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+    def no_load(prefix):
+        raise AssertionError("an index was loaded")
+
+    monkeypatch.setattr(cli, "load_shard", no_load)
+    argv = ["run", "-1", "r1.fq", "-2", "r2.fq", "-p", str(tmp_path / "x"),
+            "--nt-index", "nt/shard0", *TAXONOMY]
+    with pytest.raises(ValueError, match=f"--devices {n}: only 1 CUDA device"):
+        cli.main(argv + ["--devices", str(n)])
+    with pytest.raises(ValueError, match="cannot be negative"):
+        cli.main(argv + ["--devices=-1", *CPU])
+    assert cli._devices(1, torch.device("cuda")) == [torch.device("cuda", 0)]
+    assert cli._devices(0, torch.device("cuda")) is None
+    assert cli._devices(3, torch.device("cpu")) == [torch.device("cpu")] * 3
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("cmd", ["build-index", "run"])

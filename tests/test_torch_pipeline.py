@@ -328,7 +328,6 @@ def test_e2e_sensitivity_fdr_gate(tmp_path):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
     ({"config": PipelineConfig(spmd=True)}, "A10"),
-    ({"devices": [CPU, CPU]}, "A10"),
 ])
 def test_left_out_features_raise(world, kw, item):
     with pytest.raises(NotImplementedError, match=item):
