@@ -202,6 +202,26 @@ exits non-zero and prints no result line):
                and LSAM.id files byte-equal, launch counts equal; the
                rotating run's per-batch split (commit, align, evict), its
                commits' host packing and upload, both runs' card peaks.
+18. spmd    -- the one-program backend (``PipelineConfig(spmd=True)``,
+               ``run --spmd``; ``parallel/spmd_full.py``) on the one card.
+               (a), right after phase 7: its 512 Mbp shard and 20,000 pairs
+               through a 1 x 1 grid under the pipeline's ladder, the hits
+               equal to phase 7's device-seeding engine's and
+               ``LARGE_JAX_HITS``; the step's and the backend's median of 3
+               beside the engine's pass, the ladder level, the stage split
+               by CUDA events, the synchronizing calls of one step
+               (``torch.cuda.set_sync_debug_mode``), its launches, ``dp_fwd``
+               at the step's deep-DP shape against its plain version and
+               bound, the card peak, the payload and the bytes the shard
+               holds on the card. (b) phase 9's world on a 2 x 2 grid of
+               the card (``devices=[cuda:0] * 4``) == the JAX pipeline's
+               record, each NT shard placed once. (c) phase 17's files and
+               4 shards on a 2 x 4 grid (``devices=[cuda:0] * 8``) through
+               ``run_files`` at batch 20,000, byte-equal to phase 17's
+               resident run, each batch's level and seconds, the card peak.
+               (d) ``run --spmd`` over one of those shards byte-equal to
+               ``run``, and ``run --spmd`` over the 4 shards refused on one
+               card before any index is read.
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -209,7 +229,8 @@ walk and the locate). The line before the last lists the kernels as JSON,
 one entry for each TPU kernel the port replaces (``mp_dp_full`` serves
 both layouts of the full DP, so ``dp_full_rows`` carries ``dp_full``'s
 launches and times; ``sw_subst``'s launches are phases 14 and 15's,
-``sw_dna``'s, the same kernel under the DNA table, phase 16's); the
+``sw_dna``'s, the same kernel under the DNA table, phase 16's;
+``dp_fwd``'s, phase 5's and phase 18's); the
 last line is ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
@@ -221,12 +242,14 @@ import contextlib
 import dataclasses
 import gzip
 import hashlib
+import io
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -261,6 +284,7 @@ from megapath_tpu_torch.index.pack import (  # noqa: E402
 from megapath_tpu_torch.io.fastq import FastqRecord, read_fastx, trim_readno  # noqa: E402
 from megapath_tpu_torch import native  # noqa: E402
 from megapath_tpu_torch.ops import _build, dp_cuda, protein_cuda, seed_cuda  # noqa: E402
+from megapath_tpu_torch.parallel import spmd_full as sfull  # noqa: E402
 from megapath_tpu_torch.ops.dp import (  # noqa: E402
     OFF_TEXT_CODE,
     PROTEIN_PARAMS,
@@ -1004,15 +1028,17 @@ def lsam_id_table(lines) -> dict:
     return out
 
 
-def world_config(device_seeding: bool) -> PipelineConfig:
-    return PipelineConfig(read_len=250, max_read_len=250, device_seeding=device_seeding)
+def world_config(device_seeding: bool, spmd: bool = False) -> PipelineConfig:
+    return PipelineConfig(read_len=250, max_read_len=250, device_seeding=device_seeding,
+                          spmd=spmd)
 
 
 def world_pipeline(world, dev: torch.device, device_seeding: bool,
-                   devices=None) -> MegaPathPipeline:
+                   devices=None, spmd: bool = False) -> MegaPathPipeline:
     """The port's pipeline over ``world_workload``'s shards: bbduk with the
     TruSeq table, the hg and ribo filters and two NT shards, placed over
-    ``devices`` when given."""
+    ``devices`` when given; with ``spmd``, the one-program backend over
+    them."""
     def shard(seqs):
         ref = pack_fasta([FastqRecord(name, _text(codes), "", desc)
                           for name, desc, codes in seqs])
@@ -1021,7 +1047,7 @@ def world_pipeline(world, dev: torch.device, device_seeding: bool,
     return MegaPathPipeline(
         [shard(s) for s in world["nt"]], mini_taxdb(), hg_shard=shard(world["hg"]),
         adapters=build_kmer_ref([TRUSEQ], k=27, hdist=1),
-        config=world_config(device_seeding), ribo_shard=shard(world["ribo"]),
+        config=world_config(device_seeding, spmd), ribo_shard=shard(world["ribo"]),
         devices=devices, device=dev,
     )
 
@@ -2714,7 +2740,7 @@ def phase_large(dev: torch.device, smi: str, lat: dict):
           f"in {build_s:.1f} s (suffix array and tables on the card), card peak "
           f"{peak:.2f} GiB [{smi}]")
     engine = AlignEngine(ref, fm, AlignParams(), device=dev, device_seeding=True)
-    hits, counts, _ = _timed_passes(engine, batch, 3, smi, "large")
+    hits, counts, engine_s = _timed_passes(engine, batch, 3, smi, "large")
     print(f"[large] hits {len(hits)} (the JAX engine logged {LARGE_JAX_HITS} on this "
           f"workload, BENCH_r05.json)")
     sub = [a[:LARGE_GATE_PAIRS] for a in batch]
@@ -2729,7 +2755,7 @@ def phase_large(dev: torch.device, smi: str, lat: dict):
           f"host-seeding engine's ({len(got)} hits)")
     check_locate("large", engine.dfm, seed_rows(engine.dfm, batch, 10240), lat["HBM"],
                  "HBM", smi)
-    return ref, fm, batch
+    return (ref, fm, batch), hits, engine_s
 
 
 def seed_rows(dfm, batch, n: int) -> torch.Tensor:
@@ -4015,7 +4041,7 @@ class _RotationProbe:
         return out
 
 
-def rotation_realistic(dev: torch.device, smi: str, human, d: Path) -> None:
+def rotation_realistic(dev: torch.device, smi: str, human, d: Path) -> float:
     """Phase 10's community through ``build-index --shard-bp`` into
     ROTATION_SHARDS NT shards, its 50,000 pairs and phase 7's 20,000 as
     gzip FASTQ; ``run --batch-size 20000 --devices 1`` (4 batches x 4
@@ -4089,25 +4115,336 @@ def rotation_realistic(dev: torch.device, smi: str, human, d: Path) -> None:
           f"{[round(r / 2**20, 1) for r in res]}: after the first batch it "
           f"{'climbs' if max(res) > res[ROTATION_SHARDS - 1] else 'stays flat'}; both runs' "
           f"reports and LSAM.id files byte-equal, launch counts equal [{smi}]")
+    return runs["resident"]["s"]
 
 
-def phase_rotation(dev: torch.device, smi: str, human) -> float:
+def phase_rotation(dev: torch.device, smi: str, human, d: Path) -> tuple:
     """Shard placement and wave rotation on the card: the world through
     ``devices=`` in waves of one and resident from the pool, build-db's
     shards through ``run --devices 1``, and the realistic rotation of 4
-    community shards through one card against the resident run. Returns
-    the phase's seconds."""
-    import tempfile
-
+    community shards through one card against the resident run, its files
+    under ``d / "e2e"`` (phase 18 reads them). Returns the phase's seconds
+    and the resident run's."""
     t_phase = time.perf_counter()
     rotation_world(dev, smi)
-    with tempfile.TemporaryDirectory() as d:
-        d = Path(d)
-        rotation_db(dev, smi, d / "db")
-        rotation_realistic(dev, smi, human, d / "e2e")
+    rotation_db(dev, smi, d / "db")
+    resident_s = rotation_realistic(dev, smi, human, d / "e2e")
     secs = time.perf_counter() - t_phase
     print(f"[rotation] the rotation phase took {secs:.1f} s [{smi}]")
-    return secs
+    return secs, resident_s
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the one-program backend (PipelineConfig.spmd, run --spmd)
+# ---------------------------------------------------------------------------
+SPMD_REALISTIC_DEVICES = 8  # a 2 x 4 grid of the one card for phase 17's 4 shards
+
+
+def _sync_calls(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, the synchronizing calls it made as {"file:line": count}, each at
+    the innermost frame of the port that made it)."""
+    import traceback
+    import warnings
+
+    calls = collections.Counter()
+
+    def record(message, *a, **k):
+        if "synchroniz" not in str(message).lower():
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if "megapath_tpu_torch" in f.filename] or [
+            f for f in stack if "warnings" not in f.filename]
+        calls[f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, dict(calls)
+
+
+def _spmd_bytes(pipe: MegaPathPipeline) -> dict:
+    """The bytes each shard holds on the card in spmd mode: the grid's
+    placement on each of its devices (tables, packed words, sequence
+    offsets) and the rescue engine's text codes on its column's first
+    device."""
+    out = {}
+    for (s, dev), placed in pipe._spmd["inputs"].placed.items():
+        eng = pipe.nt_engines[s]
+        text = eng._ref_dev.numel() if str(eng.device) == dev else 0
+        out[s, dev] = dict(tables=placed.dfm.nbytes, words=placed.ref_words.numel() * 4,
+                           offsets=placed.seq_off.numel() * 8, text=text,
+                           chars=placed.n_text)
+    return out
+
+
+def _print_spmd_bytes(tag: str, pipe: MegaPathPipeline) -> None:
+    for (s, dev), b in _spmd_bytes(pipe).items():
+        total = b["tables"] + b["words"] + b["offsets"] + b["text"]
+        print(f"[spmd] {tag}: shard {s} on {dev} holds {total:,} bytes = "
+              f"{total / b['chars']:.3f} a character (tables {b['tables']:,}, packed words "
+              f"{b['words']:,}, offsets {b['offsets']:,}, the rescue engine's text "
+              f"{b['text']:,})")
+
+
+def spmd_large(dev: torch.device, smi: str, large, engine_hits, engine_s: float,
+               n_timed: int = 3) -> dict:
+    """18 (a): phase 7's 512 Mbp shard and its 20,000 pairs through a 1 x 1
+    grid under the pipeline's ladder (``_align_shards_spmd``, the exact
+    rescue on). The hits must equal the device-seeding engine's and
+    LARGE_JAX_HITS. Prints the step's and the backend's median over
+    ``n_timed`` synchronized passes beside the engine's pass, the ladder
+    level, the stage split (CUDA events), the synchronizing calls of one
+    step, the launches of one step, ``dp_fwd`` at the step's deep-DP shape
+    beside its plain version and bound, the card peak of one step and the
+    payload. Returns the backend run's launch counts."""
+    ref, fm, (reads1, lens1, reads2, lens2) = large
+    n = len(lens1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = PipelineConfig(read_len=100, skip_preprocess=True, skip_human=True,
+                         device_seeding=True, spmd=True)
+    pipe = MegaPathPipeline([(ref, fm)], mini_taxdb(), config=cfg, devices=[dev], device=dev)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    sp = pipe._spmd
+    print(f"[spmd] (a) 512 Mbp, 1 x 1 grid: pipeline built in {place_s:.3f} s (the shard "
+          f"packed on the host and put on the card once) [{smi}]")
+    _print_spmd_bytes("(a)", pipe)
+    args = (reads1, lens1, reads2, lens2, n)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hits = pipe._align_shards_spmd(*args)[0]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    counts = read_counts()
+    tried = list(sp["tried"])
+    _require_launches("spmd large", counts, ("dp_fwd", "mmp_seed", "locate"))
+    if not np.array_equal(canonical_hits(hits), canonical_hits(engine_hits)) or \
+            len(hits) != LARGE_JAX_HITS:
+        raise AssertionError(f"[spmd] (a): {len(hits)} hits differ from the device-seeding "
+                             f"engine's {len(engine_hits)} (JAX {LARGE_JAX_HITS})")
+    level = sp["level"]
+    Bl, L, step_args = pipe._spmd_args(*args)
+    step = sp["steps"][(Bl, L, level)]
+
+    def one_step(**kw):
+        return step(sp["inputs"], *step_args, **kw)
+
+    def median_s(fn):
+        times = []
+        for _ in range(n_timed):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times), times
+
+    step_s, step_all = median_s(one_step)
+    backend_s, backend_all = median_s(lambda: pipe._align_shards_spmd(*args))
+    timer = sfull.StageEvents()
+    one_step(timer=timer)
+    split = timer.seconds()
+    zero_counts()
+    one_step()
+    step_counts = read_counts()
+    _, syncs = _sync_calls(one_step)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one_step()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # dp_fwd at the step's deep-DP shape: the inputs of its first forward pass
+    seen = []
+    orig = sfull.sw_align_auto
+    sfull.sw_align_auto = lambda *a, **k: seen.append((a, k)) or orig(*a, **k)
+    try:
+        one_step()
+    finally:
+        sfull.sw_align_auto = orig
+    (r, w, rl, wl), kw = seen[0]
+    p = kw["params"]
+    C, R = r.shape
+    W = w.shape[1]
+    err = _hold(f"dp_fwd at the spmd deep-DP shape ({C}, {R}, {W})",
+                dp_cuda.sw_align_cuda(r, w, rl, wl, p), sw_align(r, w, rl, wl, p), FWD_FIELDS)
+    fwd_ms = _median_ms(lambda: dp_cuda.sw_align_cuda(r, w, rl, wl, p))
+    plain_ms = _median_ms(lambda: sw_align(r, w, rl, wl, p), reps=3)
+    cells, nbytes = dp_work(rl.cpu().numpy(), wl.cpu().numpy(), R, W)
+    bound_ms, bound_by = bound(cells, nbytes)
+    n_reads = 2 * n
+    print(f"[spmd] (a) level {level} (tried {tried}), Bl {Bl}, L {L}; hits {len(hits)} "
+          f"== the device-seeding engine's and JAX's {LARGE_JAX_HITS}; first call "
+          f"{first_s:.3f} s; launches of the backend's call {counts}")
+    print(f"[spmd] (a) the step alone: median {step_s:.4f} s of {n_timed} "
+          f"({[round(x, 4) for x in step_all]}) = {n_reads / step_s:.0f} reads/s; the backend "
+          f"with the exact rescue: median {backend_s:.4f} s "
+          f"({[round(x, 4) for x in backend_all]}); the device-seeding engine's pass "
+          f"{engine_s:.4f} s (phase 7) [{smi}]")
+    print(f"[spmd] (a) one step's stages (CUDA events): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in split.items())
+        + f"; sum {sum(split.values()) * 1e3:.3f} ms")
+    print(f"[spmd] (a) one step: launches {step_counts}; {sum(syncs.values())} synchronizing "
+          f"calls {syncs}; card memory {resident / 2**30:.3f} GiB resident before it, peak "
+          f"{peak / 2**30:.3f} GiB (+{(peak - resident) / 2**30:.3f}) [{smi}]")
+    print(f"[spmd] (a) dp_fwd at the step's deep-DP shape ({C}, {R}, {W}): {fwd_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, max |err| {err}; {cells:,} cells, {_share(fwd_ms, bound_ms)} "
+          f"({bound_by}) [{smi}]")
+    print(f"[spmd] (a) payload {sp['payload']}")
+    return counts
+
+
+def spmd_world(dev: torch.device, smi: str) -> dict:
+    """18 (b): phase 9's world (two NT shards, hg, ribo) through
+    ``MegaPathPipeline(config.spmd=True, devices=[dev] * 4)``, a 2 x 2 grid;
+    equal to the JAX pipeline's record; each NT shard on the card once."""
+    want = _pipeline_records()["world"]
+    world = world_workload(WORLD_PAIRS_PER_KIND)
+    if pairs_digest(world["pairs"]) != want["input_sha256"]:
+        raise AssertionError("[spmd] the world's inputs differ from the fixture's: "
+                             "numpy's generator drifted, this is not a port fault")
+    recs = fastq_records(world["pairs"])
+    pipe = world_pipeline(world, dev, True, devices=[dev] * 4, spmd=True)
+    placed = pipe._spmd["inputs"].placed
+    if pipe._spmd["mesh"].shape != {"data": 2, "shard": 2} or len(placed) != 2:
+        raise AssertionError(f"[spmd] world: grid {pipe._spmd['mesh'].shape}, "
+                             f"placements {list(placed)}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = pipe.run_records(*recs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = read_counts()
+    _require_launches("spmd world", counts, ("dp_fwd", "mmp_seed", "locate", "dp_full"))
+    bad = record_diff(pipeline_record(res), want["device_seeding"])
+    if bad:
+        raise AssertionError(f"[spmd] world: differs from the JAX pipeline's record: {bad}")
+    print(f"[spmd] (b) world on a 2 x 2 grid of {dev}: {len(recs[0])} pairs in {dt:.3f} s, level "
+          f"{pipe._spmd['level']}; reports, both LSAM.id digests and the counters equal the JAX "
+          f"pipeline's; each NT shard placed once ({sorted(placed)}); launches {counts} [{smi}]")
+    return counts
+
+
+def spmd_realistic(dev: torch.device, smi: str, d: Path, resident_s: float) -> dict:
+    """18 (c): phase 17's files and 4 shards (in ``d``) through
+    ``run_files`` with ``spmd=True, devices=[dev] * 8`` (a 2 x 4 grid) at
+    batch ROTATION_BATCH, the configuration ``run`` builds from phase 17's
+    argv; the reports and LSAM.id files byte-equal to phase 17's resident
+    run. Prints each batch's ladder level and seconds, the run's time
+    beside the resident run's, and the card peak."""
+    from megapath_tpu_torch import cli
+
+    shards = [cli.load_shard(str(d / "nt" / f"shard{i}")) for i in range(ROTATION_SHARDS)]
+    db = TaxDB()
+    db.read_nodes(d / "nodes.dmp")
+    db.read_names(d / "names.dmp")
+    db.read_acc2tid(d / "acc2tid.map")
+    cfg = PipelineConfig(read_len=100, skip_human=True, device_seeding=True,
+                         batch_size=ROTATION_BATCH, spmd=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    pipe = MegaPathPipeline(shards, db, config=cfg, devices=[dev] * SPMD_REALISTIC_DEVICES,
+                            device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    batches = []
+    orig = pipe._align_shards_spmd
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        batches.append((a[-1], pipe._spmd["level"], list(pipe._spmd["tried"]),
+                        time.perf_counter() - t))
+        pipe._spmd["tried"].clear()
+        return out
+
+    pipe._align_shards_spmd = timed
+    zero_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        pipe.run_files(d / "r1.fq.gz", d / "r2.fq.gz", str(d / "spmd"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = read_counts()
+    _require_launches("spmd realistic", counts, ("dp_fwd", "mmp_seed", "locate"))
+    bad = [suf for suf in (".nt.report", ".nt.ra.report", ".nt.lsam.id", ".nt.ra.lsam.id")
+           if (d / f"spmd{suf}").read_bytes() != (d / f"resident{suf}").read_bytes()]
+    if bad:
+        raise AssertionError(f"[spmd] (c): differs from phase 17's resident run: {bad}")
+    print(f"[spmd] (c) realistic, 4 shards on a {pipe._spmd['mesh'].shape} grid of {dev}: "
+          f"pipeline built in {build_s:.3f} s; run_files {run_s:.3f} s against the resident "
+          f"run's {resident_s:.3f} s (phase 17, from the CLI); reports and LSAM.id files "
+          f"byte-equal to it; card peak {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB "
+          f"allocated, {torch.cuda.max_memory_reserved(dev) / 2**20:.1f} reserved; launches "
+          f"{counts} [{smi}]")
+    for i, (n, level, tried, s) in enumerate(batches):
+        print(f"[spmd] (c) batch {i}: {n} pairs after bbduk, level {level} (tried {tried}), "
+              f"stage 2 {s:.3f} s")
+    _print_spmd_bytes("(c)", pipe)
+    return counts
+
+
+def spmd_cli(dev: torch.device, smi: str, d: Path) -> dict:
+    """18 (d): ``run --spmd --nt-index shard0`` over phase 17's files, byte-equal to the
+    same ``run`` without ``--spmd``; then ``run --spmd`` over 4 shards on the
+    one card, refused before any index is read."""
+    from megapath_tpu_torch import cli
+
+    base = ["run", "-1", d / "r1.fq.gz", "-2", d / "r2.fq.gz", "--nt-index",
+            d / "nt" / "shard0", "--nodes", d / "nodes.dmp", "--names", d / "names.dmp",
+            "--acc2tid", d / "acc2tid.map", "-L", "100", "--batch-size", ROTATION_BATCH]
+    zero_counts()
+    spmd_s, _ = _cli(base + ["-p", d / "cli_spmd", "--spmd"], dev)
+    counts = read_counts()
+    _require_launches("spmd cli", counts, ("dp_fwd", "mmp_seed", "locate"))
+    plain_s, _ = _cli(base + ["-p", d / "cli_plain"], dev)
+    bad = [suf for suf in (".nt.report", ".nt.ra.report", ".nt.lsam.id", ".nt.ra.lsam.id")
+           if (d / f"cli_spmd{suf}").read_bytes() != (d / f"cli_plain{suf}").read_bytes()]
+    if bad:
+        raise AssertionError(f"[spmd] (d): run --spmd differs from run: {bad}")
+    loads = []
+    orig = cli.load_shard
+    cli.load_shard = lambda prefix: loads.append(prefix) or orig(prefix)
+    four = [d / "nt" / f"shard{i}" for i in range(ROTATION_SHARDS)]
+    argv = base[:6] + four + base[7:] + ["-p", d / "refused", "--spmd", "--device", str(dev)]
+    try:
+        cli.main([str(a) for a in argv])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("[spmd] (d): run --spmd over 4 shards on one card ran")
+    finally:
+        cli.load_shard = orig
+    if loads or "spmd backend needs >= 4 devices for 4 shards" not in refusal:
+        raise AssertionError(f"[spmd] (d): refusal {refusal!r} after loading {loads}")
+    print(f"[spmd] (d) run --spmd --nt-index shard0: {spmd_s:.3f} s, byte-equal to run "
+          f"({plain_s:.3f} s); launches {counts}; 4 shards on one card refused before any "
+          f"index was read: {refusal} [{smi}]")
+    return counts
+
+
+def phase_spmd(dev: torch.device, smi: str, d: Path, resident_s: float) -> tuple:
+    """18 (b)-(d); (a) runs after phase 7, while its shard is loaded.
+    Returns the seconds of (b)-(d) and their dp_fwd launches."""
+    t = time.perf_counter()
+    counts = [spmd_world(dev, smi), spmd_realistic(dev, smi, d, resident_s),
+              spmd_cli(dev, smi, d)]
+    secs = time.perf_counter() - t
+    print(f"[spmd] (b)-(d) took {secs:.1f} s [{smi}]")
+    return secs, sum(c["dp_fwd"] for c in counts)
 
 
 def main() -> int:
@@ -4126,7 +4463,11 @@ def main() -> int:
     launches = {"dp_fwd": phase_step(dev)}
     phase_slice(dev, smi, toy)
     del toy
-    large = phase_large(dev, smi, lat)
+    large, large_hits, engine_s = phase_large(dev, smi, lat)
+    t = time.perf_counter()
+    launches["dp_fwd"] += spmd_large(dev, smi, large, large_hits, engine_s)["dp_fwd"]
+    spmd_a_s = time.perf_counter() - t
+    del large_hits
     phase_pipeline_cascade(dev)
     phase_pipeline_world(dev, smi)
     counts = phase_pipeline_large(dev, smi, large)
@@ -4140,11 +4481,16 @@ def main() -> int:
     prot_s, prot_subst = phase_protein(dev, smi)
     launches["sw_subst"] = asm_subst + prot_subst
     amp_s, launches["sw_dna"] = phase_amplicon(dev, smi)
-    rot_s = phase_rotation(dev, smi, human)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rot_s, resident_s = phase_rotation(dev, smi, human, d)
+        spmd_s, spmd_fwd = phase_spmd(dev, smi, d / "e2e", resident_s)
+    launches["dp_fwd"] += spmd_fwd
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s "
           f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
           f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s, the amplicon "
-          f"phase {amp_s:.1f} s, the rotation phase {rot_s:.1f} s) [{smi}]")
+          f"phase {amp_s:.1f} s, the rotation phase {rot_s:.1f} s, the spmd phase "
+          f"{spmd_a_s + spmd_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

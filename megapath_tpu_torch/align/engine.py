@@ -188,9 +188,16 @@ class AlignEngine:
         if not lazy_device:
             self.commit()
 
-    def commit(self) -> None:
+    def commit(self, dfm: Optional[DeviceFM] = None,
+               ref_words: Optional[torch.Tensor] = None) -> None:
         """Put this shard's text, and on device seeding its FM tables,
-        on the engine's device, once."""
+        on the engine's device, once. ``dfm`` and ``ref_words``, tables of
+        this shard already on the engine's device (the one-program grid's),
+        are held instead of a copy of the engine's own."""
+        if dfm is not None:
+            self.dfm = dfm
+        if ref_words is not None:
+            self._ref_words_dev = ref_words
         if self._ref_dev is None:
             self._ref_dev = torch.from_numpy(
                 np.ascontiguousarray(self.ref.codes, dtype=np.uint8)

@@ -41,8 +41,11 @@ genomecov-filter, lsam-read-filter, m8-to-lsam, r2c-to-r2g, cleanup,
 bbduk. Evaluation tools: count-table, m8-cov, maplen-hist. All run on
 the host.
 
-What the port has not ported parses and then raises NotImplementedError
-naming the ROADMAP item: ``run --spmd`` (A10b).
+``run --spmd`` aligns the NT shards in the one-program step
+(``parallel.spmd_full``) over a (data x shard) grid of the ``--devices N``
+devices (0: every visible card, or the one CPU under ``--device cpu``);
+it needs at least as many devices as shards and says so before any index
+is read.
 """
 from __future__ import annotations
 
@@ -168,13 +171,15 @@ def _cmd_build_db(args) -> int:
 
 
 def _cmd_run(args) -> int:
-    if args.spmd:
-        raise NotImplementedError("run --spmd: the one-program SPMD backend is ROADMAP A10b")
     from megapath_tpu_torch.filters.bbduk import build_kmer_ref, load_adapters
+    from megapath_tpu_torch.parallel.spmd_full import grid_devices, make_mesh
     from megapath_tpu_torch.pipeline import MegaPathPipeline, PipelineConfig
 
     dev = _device(args.device)
     devices = _devices(args.devices, dev)
+    if args.spmd:
+        # the grid's refusal, before any index is read
+        make_mesh(grid_devices(dev, devices), len(args.nt_index))
     db = _taxdb(args)
     nt_shards = [load_shard(p) for p in args.nt_index]
     hg = load_shard(args.hg_index) if args.hg_index else None
@@ -192,6 +197,7 @@ def _cmd_run(args) -> int:
         device_seeding=not args.no_device_seeding,
         batch_size=args.batch_size,
         bam=args.bam,
+        spmd=args.spmd,
     )
     prot_db = None
     if args.protein_db:
@@ -514,7 +520,7 @@ def main(argv=None) -> int:
                    help="torch device that builds the indexes (cuda or cpu)")
     b.set_defaults(fn=_cmd_build_db)
 
-    r = sub.add_parser("run", help="run the detection pipeline (--spmd refused)")
+    r = sub.add_parser("run", help="run the detection pipeline")
     r.add_argument("-1", dest="r1", required=True)
     r.add_argument("-2", dest="r2", required=True)
     r.add_argument("-p", dest="prefix", default="megapath")
@@ -551,7 +557,9 @@ def main(argv=None) -> int:
                         "PREFIX.nt.bam (soap4 -b -o + samtools, "
                         "runMegaPath.sh:199-216)")
     r.add_argument("--spmd", action="store_true",
-                   help="the one-program SPMD backend (ROADMAP A10b: refused)")
+                   help="route NT alignment through the one-program "
+                        "backend (parallel.spmd_full) over a (data x shard) "
+                        "grid of the --devices devices")
     r.add_argument("--device", default="cuda",
                    help="torch device of every engine (cuda or cpu)")
     r.set_defaults(fn=_cmd_run)

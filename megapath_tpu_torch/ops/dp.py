@@ -78,6 +78,16 @@ def sw_align(
     reads = reads.to(torch.int32)
     dev = reads.device
     B, R = reads.shape
+    if B > 1:
+        # rows are independent: identical rows (the padding rows of a
+        # fixed-shape batch) are computed once
+        key = torch.cat([reads, refs, read_lens.to(torch.int32)[:, None],
+                         ref_lens.to(torch.int32)[:, None]], 1)
+        uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+        if uniq.shape[0] < B:
+            W = refs.shape[1]
+            res = sw_align(uniq[:, :R], uniq[:, R : R + W], uniq[:, -2], uniq[:, -1], params)
+            return DPResult(*(f[inv] for f in res))
     match = torch.tensor(params.match, dtype=torch.int32, device=dev)
     mismatch = torch.tensor(params.mismatch, dtype=torch.int32, device=dev)
     return _forward_scan(

@@ -35,15 +35,19 @@ shards, align it, evict it. So ``devices=[cuda:0]`` streams any number
 of shards through one card; the outputs do not depend on the placement
 (``tests/test_torch_rotation.py``).
 
-Left out, and refused with NotImplementedError naming the ROADMAP item
-that ports it: the one-program SPMD backend (``PipelineConfig.spmd``,
-A10b).
+``PipelineConfig.spmd`` routes stage 2 through the one-program backend
+(``parallel.spmd_full``): the whole engine runs on the device for each
+(data, shard) cell of a grid of ``devices`` (default: every device of
+``device``'s type), the host gathers the per-shard hit tables, and the
+shared tail makes the same reports and LSAM lines
+(``tests/test_torch_spmd_pipeline.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import concurrent.futures
+import dataclasses
 import glob
 import os
 import queue
@@ -77,6 +81,11 @@ from megapath_tpu_torch.pipeline.assembly import (
 from megapath_tpu_torch.taxonomy.report import KrakenReport
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB, get_correct_acc, remove_version
 from megapath_tpu_torch.utils.timing import StageTimer
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
 
 HG_PARAMS = AlignParams(mmp=MmpParams(seed_min_length=22, reseed_len=23))
 NT_PARAMS = AlignParams()
@@ -112,8 +121,11 @@ class PipelineConfig:
     # run_files also writes per-shard BAMs + the merged, sorted
     # PREFIX.nt.bam (soap4 -b + samtools, runMegaPath.sh:199-216)
     bam: bool = False
-    # the reference package's one-program SPMD backend for stage 2:
-    # refused until ROADMAP A10b
+    # route stage 2 (NT alignment) through the one-program backend
+    # (parallel.spmd_full): every shard aligns in one step over a (data x
+    # shard) grid of devices instead of the per-shard engines. The shards'
+    # indexes must share their build parameters; the per-shard hit tables
+    # equal the engines', so the shared tail gives the same outputs.
     spmd: bool = False
     # reference-exact results (AlignEngine.exact_rescue): pairs that
     # end with a zero-hit end re-run through the undialed walk, making
@@ -193,12 +205,11 @@ class MegaPathPipeline:
         the devices in waves (``_align_shards``). The assembly stage and
         the protein remap run on ``device``. ``timer``, when given, records
         the stages of ``run_records`` (bbduk, hg, ribo, nt, tail) on the
-        host clock."""
+        host clock. With ``config.spmd`` the NT shards align in the
+        one-program step over a grid of ``devices`` (default: every device
+        of ``device``'s type) and there is no pool; each shard's engine
+        serves the exact rescue alone, on its column's first device."""
         self.cfg = config or PipelineConfig()
-        if self.cfg.spmd:
-            raise NotImplementedError(
-                "PipelineConfig.spmd: the one-program SPMD backend is ROADMAP A10b"
-            )
         self.taxdb = taxdb
         self.adapters = adapters
         self.device = torch.device(device)
@@ -214,15 +225,32 @@ class MegaPathPipeline:
         # shard at once: the NT engines stay lazy and _align_shards
         # rotates them through the devices in waves
         self._n_devices = len(devs)
-        self._wave_shards = bool(devs) and len(nt_shards) > len(devs)
+        self._wave_shards = bool(devs) and len(nt_shards) > len(devs) and not self.cfg.spmd
         nt_params = NT_PARAMS.with_(top_percentage=self.cfg.top_percentage)
-        self.nt_engines = [
-            self._engine(ref, fm, nt_params, devs[i % len(devs)] if devs else None,
-                         lazy_device=self._wave_shards)
-            for i, (ref, fm) in enumerate(nt_shards)
-        ]
+        self._spmd: Optional[dict] = None
+        if self.cfg.spmd:
+            self._init_spmd(nt_shards, devs, nt_params)
+            # the engines serve the exact rescue alone, each on its column's
+            # first device: there they hold the shard's text and, on device
+            # seeding, the grid's tables of that device (no second copy)
+            self.nt_engines = []
+            for i, (ref, fm) in enumerate(nt_shards):
+                dev0 = self._spmd["mesh"].devices[0][i]
+                placed = self._spmd["inputs"].placed[(i, str(dev0))]
+                eng = self._engine(ref, fm, nt_params, dev0, lazy_device=True)
+                if self.cfg.device_seeding:
+                    eng.commit(dfm=placed.dfm, ref_words=placed.ref_words)
+                else:
+                    eng.commit()
+                self.nt_engines.append(eng)
+        else:
+            self.nt_engines = [
+                self._engine(ref, fm, nt_params, devs[i % len(devs)] if devs else None,
+                             lazy_device=self._wave_shards)
+                for i, (ref, fm) in enumerate(nt_shards)
+            ]
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
-        if devs and len(nt_shards) > 1:
+        if devs and len(nt_shards) > 1 and not self.cfg.spmd:
             self._pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=min(len(nt_shards), len(devs))
                 if self._wave_shards else len(nt_shards),
@@ -784,6 +812,8 @@ class MegaPathPipeline:
         evicted after them, so at most one shard a device is resident."""
         if not n:
             return [BatchHits.empty() for _ in self.nt_engines]
+        if self._spmd is not None:
+            return self._align_shards_spmd(reads1, lens1, reads2, lens2, n)
         args = (reads1, lens1, reads2, lens2)
         engines = self.nt_engines
         if not self._wave_shards:
@@ -800,6 +830,98 @@ class MegaPathPipeline:
                 for eng in wave:
                     eng.evict()
         return out
+
+    def _init_spmd(self, nt_shards, devs, nt_params: AlignParams) -> None:
+        """The one-program backend's grid and each shard's tables on the
+        devices of its column, put there once."""
+        from megapath_tpu_torch.parallel.spmd_full import (
+            fm_meta,
+            grid_devices,
+            make_mesh,
+            place_spmd_full_inputs,
+        )
+
+        mesh = make_mesh(grid_devices(self.device, devs), len(nt_shards))
+        meta = fm_meta([fm for _, fm in nt_shards])
+        self._spmd = {
+            "mesh": mesh, "meta": meta,
+            "inputs": place_spmd_full_inputs(mesh, meta, nt_shards),
+            "params": nt_params, "steps": {}, "ladder_start": {},
+            "level": None,  # the level that served the last batch
+            "tried": [],  # the level of every step run, in order
+            "payload": None,  # the last batch's hit payload
+        }
+
+    def _spmd_args(self, reads1, lens1, reads2, lens2, n):
+        """The batch as the step takes it: D blocks of Bl pairs, Bl on a
+        256 grain so that repeated batches reuse one shape, pad pairs of
+        length 0. Returns (Bl, L, (reads1, reads2, lens1, lens2))."""
+        D = self._spmd["mesh"].shape["data"]
+        L = max(reads1.shape[1], reads2.shape[1])
+        Bl = max(256, _round_up(-(-n // D), 256))
+        B = D * Bl
+
+        def pad2(a):
+            out = np.zeros((B, L), np.uint8)
+            out[: a.shape[0], : a.shape[1]] = a
+            return out
+
+        def pad1(a):
+            out = np.zeros(B, np.int32)
+            out[: len(a)] = a
+            return out
+
+        return Bl, L, (pad2(reads1), pad2(reads2), pad1(lens1), pad1(lens2))
+
+    def _align_shards_spmd(self, reads1, lens1, reads2, lens2, n) -> List[BatchHits]:
+        """Stage 2 through the one-program step: every shard against the
+        batch in one step over the grid, the [D, S, H] output turned into
+        the per-shard BatchHits the engines give (pad pairs emit
+        nothing)."""
+        from megapath_tpu_torch.parallel.spmd_full import (
+            LEAN_CAPS,
+            SpmdCaps,
+            build_spmd_full_engine,
+            spmd_hits_to_batch,
+            spmd_payload_stats,
+        )
+
+        sp = self._spmd
+        Bl, L, args = self._spmd_args(reads1, lens1, reads2, lens2, n)
+        # the lean caps first, the defaults when a cap overflows; the
+        # level that served a shape is where its next batch starts
+        ladder = (("lean", LEAN_CAPS), ("robust", SpmdCaps()))
+        key = (Bl, L)
+        for lvl in range(sp["ladder_start"].get(key, 0), len(ladder)):
+            tag, caps = ladder[lvl]
+            step = sp["steps"].get(key + (tag,))
+            if step is None:
+                step = sp["steps"][key + (tag,)] = build_spmd_full_engine(
+                    sp["mesh"], sp["meta"], L, params=sp["params"], caps=caps)
+            out = step(sp["inputs"], *args)
+            sp["tried"].append(tag)
+            try:
+                per_shard = spmd_hits_to_batch(out, Bl)
+            except RuntimeError:
+                if lvl == len(ladder) - 1:
+                    raise
+                continue
+            sp["ladder_start"][key] = lvl
+            sp["level"] = tag
+            break
+        sp["payload"] = spmd_payload_stats(out, Bl, n_real_pairs=n)
+        per_shard = [
+            BatchHits(*[getattr(h, f.name)[h.read < n] for f in dataclasses.fields(BatchHits)])
+            for h in per_shard
+        ]
+        if self.cfg.exact:
+            # the step walks with the dials; the pairs it leaves with a
+            # zero-hit end go through each shard engine's exact rescue
+            per_shard = [
+                eng._exact_rescue(h, reads1[:n], lens1[:n], reads2[:n], lens2[:n])
+                for eng, h in zip(self.nt_engines, per_shard)
+            ]
+        return per_shard
 
     def _align_wave(self, engines: List[AlignEngine], args) -> List[BatchHits]:
         """``align_pairs`` of each engine, from the pool when there is one.

@@ -270,14 +270,6 @@ def test_cli_records_belong_to_the_workloads():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("flags,item", [(["--spmd"], "A10")])
-def test_run_refuses_unported_flags(tmp_path, flags, item):
-    argv = ["run", "-1", "r1.fq", "-2", "r2.fq", "-p", str(tmp_path / "x"),
-            "--nt-index", "nt/shard0", *TAXONOMY, *flags, *CPU]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
-
-
 @pytest.mark.parametrize("n", [2, 5])
 def test_run_devices_beyond_the_visible_cards_is_refused_before_any_build(
         tmp_path, monkeypatch, n):

@@ -73,6 +73,8 @@ import megapath_tpu_torch.amplicon.debruijn
 import megapath_tpu_torch.amplicon.realign
 import megapath_tpu_torch.pipeline.amplicon
 import megapath_tpu_torch.io.vcf
+import megapath_tpu_torch.parallel
+import megapath_tpu_torch.parallel.spmd_full
 import chip_smoke
 
 # the subcommands import their modules when they run: run each host tool

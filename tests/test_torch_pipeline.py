@@ -323,17 +323,6 @@ def test_e2e_sensitivity_fdr_gate(tmp_path):
     assert not (got_sp - {10 + s for s in range(n_species)}), "false species"
 
 
-# ---------------------------------------------------------------------------
-# what the port leaves out raises, naming the ROADMAP item
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("kw,item", [
-    ({"config": PipelineConfig(spmd=True)}, "A10"),
-])
-def test_left_out_features_raise(world, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        MegaPathPipeline(world["nt"], world["taxdb"], device=CPU, **kw)
-
-
 def test_run_files_protein_db_without_assembly_is_unused(world, tmp_path):
     """``run_files(protein_db=)`` without ``assembly`` runs as the JAX
     pipeline does: the protein DB is accepted and unused, and the run
