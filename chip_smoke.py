@@ -222,6 +222,23 @@ exits non-zero and prints no result line):
                (d) ``run --spmd`` over one of those shards byte-equal to
                ``run``, and ``run --spmd`` over the 4 shards refused on one
                card before any index is read.
+19. reduced -- the reduced one-program step (``parallel/spmd.py``) and the
+               candidate-position step (``parallel/dist.py``) on the one
+               card. (a), right after phase 18 (a): phase 7's 512 Mbp shard
+               and 20,000 pairs through the reduced step on a 1 x 1 grid,
+               on 18 (a)'s tables (a warm-up with its launches of the walk,
+               the locate and ``dp_fwd``, then the median of 3); the first
+               1,000 pairs' rows equal the same step on a CPU grid of those
+               tables copied back (the plain walk, locate and DP); the
+               pairs with a hit beside phase 7's engine's paired pairs;
+               ``dp_fwd`` at the step's DP shape (80,000, 100, 150) beside
+               its plain version and bound; then ``dist`` over the 20,000
+               r1 reads at phase 7's hits (width 192), its first 4,096 rows
+               equal a CPU grid's. (b) the small worlds
+               (``tests/test_spmd.py``'s and ``tests/test_parallel.py``'s,
+               with edge rows) on 2 x 2 grids of the card, every output
+               field and ``spmd_report``'s bytes equal to the JAX record
+               (``tests/fixtures/torch_spmd_records.json``).
 
 Each pipeline phase zeroes the kernels' launch counts before its run and
 fails unless its engines launched the DP (and, on device seeding, the
@@ -230,7 +247,8 @@ one entry for each TPU kernel the port replaces (``mp_dp_full`` serves
 both layouts of the full DP, so ``dp_full_rows`` carries ``dp_full``'s
 launches and times; ``sw_subst``'s launches are phases 14 and 15's,
 ``sw_dna``'s, the same kernel under the DNA table, phase 16's;
-``dp_fwd``'s, phase 5's and phase 18's); the
+``dp_fwd``'s, phase 5's, 18's and 19's; ``mmp_seed``'s and ``locate``'s,
+phase 10's and 19's); the
 last line is ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 ``megapath_tpu_torch``, and nothing of jax or ``megapath_tpu``.
 """
@@ -1835,6 +1853,199 @@ def amp_truth_score(vcf: str, truth: list, target: np.ndarray) -> dict:
     return {"recall": len(found) / len(truth), "found": len(found), "truth": len(truth),
             "false_positives": len(false), "missing": [truth[i][:3] for i in
                                                        range(len(truth)) if i not in found]}
+
+
+# ----------------------------------------------------------------------
+# the reduced grid steps' small worlds (phase 19; tests/test_torch_spmd.py,
+# tests/test_torch_dist.py and tests/fixtures/make_torch_spmd_records.py
+# use them with either package)
+# ----------------------------------------------------------------------
+# tests/test_spmd.py's step parameters, species taxids and read length
+SPMD_PARAMS = dict(insert_high=400, insert_low=50)
+SPMD_TIDS = [694009, 562, 28901, 11137, 9606, 693996]
+SPMD_L = 80
+SPMD_SA_INTERVAL = 8
+# the reference's mesh for the small worlds: 4 data rows (conftest's eight
+# virtual devices); a batch is padded to a multiple of it
+SPMD_JAX_ROWS = 4
+
+
+def _revcomp(codes: np.ndarray) -> np.ndarray:
+    return (3 - codes[::-1]).astype(np.uint8)
+
+
+def small_spmd_world() -> dict:
+    """``tests/test_spmd.py``'s world: 2 shards of 3 random 3,000 bp
+    sequences (seed 11), species 0-5, shard 1 cut by 500 bp so that the
+    pad path runs. The codes before padding."""
+    rng = np.random.default_rng(11)
+    S, M, seq_len = 2, 3, 3000
+    codes, offsets, species = [], [], []
+    for s in range(S):
+        codes.append(np.concatenate([rng.integers(0, 4, seq_len).astype(np.uint8)
+                                     for _ in range(M)]))
+        offsets.append(np.arange(M + 1) * seq_len)
+        species.append(np.arange(s * M, (s + 1) * M))
+    codes[1] = codes[1][:-500]
+    return {"codes": codes, "seq_offsets": np.stack(offsets).astype(np.int32),
+            "seq_species": np.stack(species).astype(np.int32), "n_species": S * M}
+
+
+def _pad_rows(reads1, reads2, lens, rows: int = SPMD_JAX_ROWS):
+    """Zero pairs of length 0 up to a multiple of ``rows``."""
+    pad = (-len(lens)) % rows
+    z = np.zeros((pad, reads1.shape[1]), np.uint8)
+    return (np.vstack([reads1, z]), np.vstack([reads2, z]),
+            np.concatenate([lens, np.zeros(pad, np.int32)]))
+
+
+def small_spmd_planted(world: dict, B: int = 16, insert: int = 200):
+    """``tests/test_spmd.py``'s report batch: B planted proper pairs (seed
+    3; pair b on shard b % 2, species cycling), 2 junk pairs (seed 13) and
+    the pad rows. Returns (reads1, reads2, lens)."""
+    rng = np.random.default_rng(3)
+    L = SPMD_L
+    reads1 = np.zeros((B, L), np.uint8)
+    reads2 = np.zeros((B, L), np.uint8)
+    for b in range(B):
+        s = b % 2
+        text = world["codes"][s]
+        offs = world["seq_offsets"][s]
+        m = (b // 2) % (len(offs) - 1)
+        p = int(rng.integers(int(offs[m]), int(offs[m + 1]) - insert))
+        reads1[b] = text[p : p + L]
+        reads2[b] = _revcomp(text[p + insert - L : p + insert])
+    junk = np.random.default_rng(13)
+    reads1 = np.vstack([reads1, junk.integers(0, 4, (2, L), np.uint8).astype(np.uint8)])
+    reads2 = np.vstack([reads2, junk.integers(0, 4, (2, L), np.uint8).astype(np.uint8)])
+    return _pad_rows(reads1, reads2, np.full(B + 2, L, np.int32))
+
+
+# the edge pairs' right legs in shard 1: the number of leading bases
+# mutated (a leg of L - k; 9 -> pair 151, one below the float32 threshold
+# of a best of 160, 152 = int(float32(0.95) * float32(160)); 8 -> 152,
+# kept) and an exact copy (a tie at 160, the lowest shard wins)
+SPMD_EDGE_MUTATED = (9, 8, 0)
+
+
+def _mutate(codes: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray:
+    """``codes`` with its first k bases changed to another base."""
+    out = codes.copy()
+    out[:k] = (out[:k] + 1 + rng.integers(0, 3, k)) % 4
+    return out
+
+
+def small_spmd_edge(world: dict, insert: int = 200):
+    """The world with three 200 bp fragments of shard 0 copied into shard
+    1, each copy's right leg mutated at its first ``SPMD_EDGE_MUTATED[k]``
+    bases, and the batch of the 8 random pairs of ``tests/test_spmd.py``
+    (seed 9), the three fragments' exact pairs and the pad rows. Returns
+    (world, (reads1, reads2, lens))."""
+    rng = np.random.default_rng(17)
+    L = SPMD_L
+    codes = [c.copy() for c in world["codes"]]
+    junk = np.random.default_rng(9)
+    r1 = [junk.integers(0, 4, (8, L)).astype(np.uint8)]
+    r2 = [junk.integers(0, 4, (8, L)).astype(np.uint8)]
+    for k, n_mut in enumerate(SPMD_EDGE_MUTATED):
+        p = 500 + 1000 * k + int(rng.integers(0, 300))
+        q = 1000 + 2500 * k + int(rng.integers(0, 300))
+        frag = codes[0][p : p + insert].copy()
+        copy = frag.copy()
+        copy[insert - L :] = _mutate(frag[insert - L :], n_mut, rng)
+        codes[1][q : q + insert] = copy
+        r1.append(frag[None, :L])
+        r2.append(_revcomp(frag[insert - L :])[None])
+    reads1, reads2 = np.vstack(r1), np.vstack(r2)
+    return dict(world, codes=codes), _pad_rows(reads1, reads2, np.full(len(reads1), L, np.int32))
+
+
+# the dist world's edge rows: a read with no hit, a tie across both shards,
+# and a best of 60 (four leading bases mutated) against 56 (eight: one
+# below the float32 threshold 57 = int(float32(0.95) * float32(60))) and
+# against 57 (seven: kept); the leading bases each shard's copy mutates
+DIST_EDGE_MUTATED = ((0, 0), (4, 8), (4, 7))
+
+
+def _free_slots(busy: list, n: int, width: int, count: int) -> list:
+    """``count`` starts x whose windows [x - 8, x - 8 + width) hold none of
+    the ``busy`` reads [p, p + 64) and none of each other."""
+    spans = [(p, p + 64) for p in busy]
+    out, x = [], 8
+    while len(out) < count:
+        a, b = x - 8, x - 8 + width
+        if b > n:
+            raise ValueError("no room for the edge rows")
+        clash = [e for lo, e in spans if lo < b and a < e]
+        if clash:
+            x = max(clash) + 8
+            continue
+        out.append(x)
+        spans.append((a, b))
+        x = b + 8
+    return out
+
+
+def small_dist_world() -> dict:
+    """``tests/test_parallel.py``'s world on its 4 x 2 mesh (seed 3: 2
+    shards of N 2,048, 4 sequences each, 11 species, 16 reads of 64 bp
+    planted at their home shard, W 128), then four edge rows (seed 4,
+    ``DIST_EDGE_MUTATED``) written into both shards clear of the planted
+    reads. Returns the step's inputs and the planted reads' home shard."""
+    S, D = 2, 4
+    rng = np.random.default_rng(3)
+    N, B, L, W, M = 2048, 4 * D, 64, 128, 4
+    n_species = 11
+    ref = rng.integers(0, 4, (S, N)).astype(np.uint8)
+    bounds = np.linspace(0, N, M + 1).astype(np.int32)
+    seq_offsets = np.tile(bounds, (S, 1))
+    seq_species = rng.integers(0, n_species, (S, M)).astype(np.int32)
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    cand = rng.integers(0, N - W, (B, S)).astype(np.int32)
+    home = np.zeros(B, np.int32)
+    busy = [[] for _ in range(S)]
+    for b in range(B):
+        s = (b * 7) % S
+        home[b] = s
+        seq = int(rng.integers(0, M))
+        lo, hi = int(bounds[seq]), int(bounds[seq + 1])
+        p = int(rng.integers(lo + 16, hi - L - 16))
+        reads[b] = ref[s, p : p + L]
+        cand[b, s] = p - 8
+        busy[s].append(p)
+    edge = np.random.default_rng(4)
+    slots = [_free_slots(busy[s], N, W, len(DIST_EDGE_MUTATED)) for s in range(S)]
+    e_reads = [edge.integers(0, 4, L).astype(np.uint8)]
+    e_cand = [edge.integers(0, N - W, S).astype(np.int32)]
+    for k, muts in enumerate(DIST_EDGE_MUTATED):
+        read = edge.integers(0, 4, L).astype(np.uint8)
+        for s, n_mut in enumerate(muts):
+            ref[s, slots[s][k] : slots[s][k] + L] = _mutate(read, n_mut, edge)
+        e_reads.append(read)
+        e_cand.append(np.asarray([slots[s][k] - 8 for s in range(S)], np.int32))
+    reads = np.vstack([reads, np.stack(e_reads)])
+    return {"ref_shards": ref, "seq_offsets": seq_offsets, "seq_species": seq_species,
+            "reads": reads, "read_lens": np.full(len(reads), L, np.int32),
+            "cand_pos": np.vstack([cand, np.stack(e_cand)]), "home": home,
+            "width": W, "n_species": n_species}
+
+
+def small_worlds_digest() -> str:
+    """sha256 of every array of the small worlds and their batches."""
+    world = small_spmd_world()
+    edge_world, edge_batch = small_spmd_edge(world)
+    arrays = [*world["codes"], world["seq_offsets"], world["seq_species"],
+              *small_spmd_planted(world), *edge_world["codes"], *edge_batch,
+              *(v for v in small_dist_world().values() if isinstance(v, np.ndarray))]
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def out_record(out) -> dict:
+    """An ``SpmdAlignOut`` or ``DistAlignOut`` of either package as lists."""
+    return {k: np.asarray(v).tolist() for k, v in out._asdict().items()}
 
 
 # ----------------------------------------------------------------------
@@ -4193,6 +4404,18 @@ def _print_spmd_bytes(tag: str, pipe: MegaPathPipeline) -> None:
               f"{b['text']:,})")
 
 
+def _timed_median(fn, n: int = 3) -> tuple:
+    """(median s, all s) of ``n`` synchronized calls of ``fn``."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), times
+
+
 def spmd_large(dev: torch.device, smi: str, large, engine_hits, engine_s: float,
                n_timed: int = 3) -> dict:
     """18 (a): phase 7's 512 Mbp shard and its 20,000 pairs through a 1 x 1
@@ -4203,7 +4426,8 @@ def spmd_large(dev: torch.device, smi: str, large, engine_hits, engine_s: float,
     level, the stage split (CUDA events), the synchronizing calls of one
     step, the launches of one step, ``dp_fwd`` at the step's deep-DP shape
     beside its plain version and bound, the card peak of one step and the
-    payload. Returns the backend run's launch counts."""
+    payload. Returns the backend run's launch counts and the shard's tables
+    on the card (phase 19 (a) reuses them)."""
     ref, fm, (reads1, lens1, reads2, lens2) = large
     n = len(lens1)
     torch.cuda.synchronize()
@@ -4238,18 +4462,8 @@ def spmd_large(dev: torch.device, smi: str, large, engine_hits, engine_s: float,
     def one_step(**kw):
         return step(sp["inputs"], *step_args, **kw)
 
-    def median_s(fn):
-        times = []
-        for _ in range(n_timed):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return statistics.median(times), times
-
-    step_s, step_all = median_s(one_step)
-    backend_s, backend_all = median_s(lambda: pipe._align_shards_spmd(*args))
+    step_s, step_all = _timed_median(one_step, n_timed)
+    backend_s, backend_all = _timed_median(lambda: pipe._align_shards_spmd(*args), n_timed)
     timer = sfull.StageEvents()
     one_step(timer=timer)
     split = timer.seconds()
@@ -4299,7 +4513,7 @@ def spmd_large(dev: torch.device, smi: str, large, engine_hits, engine_s: float,
           f"plain {plain_ms:.2f} ms, max |err| {err}; {cells:,} cells, {_share(fwd_ms, bound_ms)} "
           f"({bound_by}) [{smi}]")
     print(f"[spmd] (a) payload {sp['payload']}")
-    return counts
+    return counts, sp["inputs"].cells[0][0].dfm
 
 
 def spmd_world(dev: torch.device, smi: str) -> dict:
@@ -4447,6 +4661,214 @@ def phase_spmd(dev: torch.device, smi: str, d: Path, resident_s: float) -> tuple
     return secs, sum(c["dp_fwd"] for c in counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the reduced one-program step (parallel/spmd.py) and the
+# candidate-position step (parallel/dist.py)
+# ---------------------------------------------------------------------------
+REDUCED_CPU_PAIRS = 1000  # (a): the reduced step's rows held to a CPU grid's
+DIST_CPU_ROWS = 4096  # (a): dist's rows held to a CPU grid's
+DIST_WIDTH = 192
+
+
+def _small_records() -> dict:
+    return json.loads((FIX / "torch_spmd_records.json").read_text())["small"]
+
+
+def _winner_counts(out, rows: int, n_species: int) -> np.ndarray:
+    """The winner-species histogram of an output's first ``rows`` rows."""
+    best = out.best_score[:rows]
+    sp = out.all_species[:rows][np.arange(rows), np.maximum(out.best_shard[:rows], 0)]
+    return np.bincount(sp[best > 0], minlength=n_species)[:n_species].astype(np.int32)
+
+
+def _rows_diff(tag: str, got, want, n_species: int) -> None:
+    """Every field of ``want`` (a run over the first rows of ``got``'s
+    batch) equals ``got``'s rows; its histogram, the one of those rows."""
+    rows = len(want.best_score)
+    bad = [f for f in got._fields if f != "species_counts" and not np.array_equal(
+        getattr(got, f)[:rows], getattr(want, f))]
+    if not np.array_equal(want.species_counts, _winner_counts(got, rows, n_species)):
+        bad.append("species_counts")
+    if bad:
+        raise AssertionError(f"[reduced] {tag}: the card's first {rows} rows differ from the "
+                             f"CPU grid's in {bad}")
+
+
+def reduced_large(dev: torch.device, smi: str, large, dfm, engine_hits) -> dict:
+    """19 (a): phase 7's 512 Mbp shard and its 20,000 pairs through the
+    reduced step on a 1 x 1 grid, the tables those of phase 18 (a)'s
+    placement (``dfm``, on the card): a warm-up (its launches), the median
+    of 3; the first REDUCED_CPU_PAIRS pairs' rows equal the same step on a
+    CPU grid of the same tables (the card's ``DeviceFM`` fields copied back,
+    the plain walk, locate and DP); the pairs with a hit beside phase 7's
+    engine's paired pairs; ``dp_fwd`` at the step's DP shape beside its
+    plain version and bound. Then ``build_dist_align_step`` on the shard's
+    20,000 r1 reads at phase 7's first forward r1 hit of each pair less the
+    margin (a seeded random start without one), width DIST_WIDTH, on the
+    card's copy of the text: a warm-up, the median of 3, its first
+    DIST_CPU_ROWS rows equal a CPU grid's. Returns the launch counts of the
+    two warm-up calls."""
+    from megapath_tpu_torch.parallel import dist, spmd
+
+    ref, _, (reads1, lens1, reads2, lens2) = large
+    n = len(lens1)
+    params = AlignParams()
+    M = len(ref.offsets) - 1
+    species = np.arange(M, dtype=np.int32)[None]
+    sfm, meta = spmd.stack_fms([dfm])
+    mesh = spmd.make_mesh_for([dev], n_shards=1)
+    t = time.perf_counter()
+    inputs = spmd.place_spmd_inputs(mesh, sfm, ref_codes=ref.codes[None], true_n=[len(ref.codes)],
+                                    seq_offsets=ref.offsets[None], seq_species=species)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t
+    step = spmd.build_spmd_engine_step(mesh, meta, 100, M, params=params)
+    args = (reads1, reads2, lens1, lens2)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = step(inputs, *args)
+    first_s = time.perf_counter() - t
+    counts = read_counts()
+    _require_launches("reduced large", counts, ("dp_fwd", "mmp_seed", "locate"))
+    step_s, step_all = _timed_median(lambda: step(inputs, *args))
+
+    # the same tables on a CPU grid: the card's DeviceFM copied back
+    cpu = torch.device("cpu")
+    t = time.perf_counter()
+    cmesh = spmd.make_mesh_for([cpu], n_shards=1)
+    cinputs = spmd.place_spmd_inputs(cmesh, sfm, ref_codes=ref.codes[None],
+                                     true_n=[len(ref.codes)], seq_offsets=ref.offsets[None],
+                                     seq_species=species)
+    k = REDUCED_CPU_PAIRS
+    want = spmd.build_spmd_engine_step(cmesh, meta, 100, M, params=params)(
+        cinputs, *(a[:k] for a in args))
+    cpu_s = time.perf_counter() - t
+    _rows_diff("reduced step", out, want, M)
+    paired = len(np.unique(engine_hits.read[engine_hits.paired]))
+    print(f"[reduced] (a) 512 Mbp, 1 x 1 grid, {n} pairs x 100 bp, max_seeds 6: tables "
+          f"placed in {place_s:.3f} s (phase 18 (a)'s, the text uploaded); first call "
+          f"{first_s:.4f} s, median of 3 {step_s:.4f} s ({[round(x, 4) for x in step_all]}) = "
+          f"{2 * n / step_s:.0f} reads/s; launches {counts} [{smi}]")
+    print(f"[reduced] (a) pairs with best_score > 0: {int((out.best_score > 0).sum())} of {n} "
+          f"(phase 7's engine paired {paired}); the first {k} pairs' rows equal the CPU grid's "
+          f"(plain walk, locate, DP; tables copied back) in every field; the CPU run with its "
+          f"placement {cpu_s:.2f} s on the card's host")
+
+    # dp_fwd at the step's DP shape: the inputs of its one DP call
+    seen = []
+    orig = spmd.sw_align_auto
+    spmd.sw_align_auto = lambda *a, **kw: seen.append((a, kw)) or orig(*a, **kw)
+    try:
+        step(inputs, *args)
+    finally:
+        spmd.sw_align_auto = orig
+    (r, w, rl, wl), kw = seen[0]
+    p = kw["params"]
+    C, R = r.shape
+    W = w.shape[1]
+    err = _hold(f"dp_fwd at the reduced step's DP shape ({C}, {R}, {W})",
+                dp_cuda.sw_align_cuda(r, w, rl, wl, p), sw_align(r, w, rl, wl, p), FWD_FIELDS)
+    fwd_ms = _median_ms(lambda: dp_cuda.sw_align_cuda(r, w, rl, wl, p))
+    plain_ms = _median_ms(lambda: sw_align(r, w, rl, wl, p), reps=3)
+    cells, nbytes = dp_work(rl.cpu().numpy(), wl.cpu().numpy(), R, W)
+    bound_ms, bound_by = bound(cells, nbytes)
+    print(f"[reduced] (a) dp_fwd at the step's DP shape ({C}, {R}, {W}): {fwd_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, max |err| {err}; {cells:,} cells, {_share(fwd_ms, bound_ms)} "
+          f"({bound_by}) [{smi}]")
+
+    # dist at phase 7's hits: each pair's first forward r1 hit, less the margin
+    margin = params.margin(100)
+    cand = np.random.default_rng(19).integers(0, len(ref.codes) - DIST_WIDTH, n)
+    h = engine_hits
+    fwd = np.flatnonzero((h.end == 0) & (h.strand == 0))
+    first = np.unique(h.read[fwd], return_index=True)
+    cand[first[0]] = h.start[fwd[first[1]]] - margin
+    cand = cand.astype(np.int32)[:, None]
+    dmesh = dist.make_mesh(1, devices=[dev])
+    dinputs = dist.shard_arrays(dmesh, ref_shards=inputs.cells[0][0].text[None],
+                                seq_offsets=ref.offsets[None], seq_species=species)
+    dstep = dist.build_dist_align_step(dmesh, DIST_WIDTH, M)
+    dargs = (reads1, lens1, cand)
+    zero_counts()
+    dout = dstep(dinputs, *dargs)
+    dcounts = read_counts()
+    _require_launches("dist large", dcounts, ("dp_fwd",))
+    dist_s, dist_all = _timed_median(lambda: dstep(dinputs, *dargs))
+    cmesh = dist.make_mesh(1, devices=[cpu])
+    k = DIST_CPU_ROWS
+    dwant = dist.build_dist_align_step(cmesh, DIST_WIDTH, M)(
+        dist.shard_arrays(cmesh, ref_shards=ref.codes[None], seq_offsets=ref.offsets[None],
+                          seq_species=species), *(a[:k] for a in dargs))
+    _rows_diff("dist step", dout, dwant, M)
+    print(f"[reduced] (a) dist on the 512 Mbp shard: {n} r1 reads at {len(first[0])} pairs' "
+          f"first forward r1 hit less {margin} (the rest at seeded random starts), width "
+          f"{DIST_WIDTH}: first call launches {dcounts}; median of 3 {dist_s:.4f} s "
+          f"({[round(x, 4) for x in dist_all]}); hits {int((dout.best_score > 0).sum())}; the "
+          f"first {k} rows equal the CPU grid's in every field [{smi}]")
+    return {key: counts[key] + dcounts[key] for key in counts}
+
+
+def reduced_small(dev: torch.device, smi: str) -> dict:
+    """19 (b): the small worlds on 2 x 2 grids of the card (``[dev] * 4``),
+    their FM indexes built on the card: the reduced step on the planted
+    batch (and ``spmd_report``'s bytes) and on the edge world's, ``dist`` on
+    its world; every field equal to the JAX record
+    (``tests/fixtures/torch_spmd_records.json``). Returns their launches."""
+    from megapath_tpu_torch.parallel import dist, spmd
+
+    want = _small_records()
+    if small_worlds_digest() != want["input_sha256"]:
+        raise AssertionError("[reduced] the small worlds differ from the fixture's: numpy's "
+                             "generator drifted, this is not a port fault")
+    world = small_spmd_world()
+    edge_world, edge_batch = small_spmd_edge(world)
+    mesh = spmd.make_mesh_for([dev] * 4)
+    total = collections.Counter()
+    t = time.perf_counter()
+    for tag, w, (r1, r2, lens) in (("planted", world, small_spmd_planted(world)),
+                                   ("edge", edge_world, edge_batch)):
+        fms, padded, true_n = spmd.pad_and_index_shards(
+            w["codes"], sa_interval=SPMD_SA_INTERVAL, lut_k=8, device=dev)
+        sfm, meta = spmd.stack_fms(fms)
+        inputs = spmd.place_spmd_inputs(mesh, sfm, ref_codes=padded, true_n=true_n,
+                                        seq_offsets=w["seq_offsets"],
+                                        seq_species=w["seq_species"])
+        step = spmd.build_spmd_engine_step(mesh, meta, SPMD_L, w["n_species"],
+                                           params=AlignParams(**SPMD_PARAMS))
+        zero_counts()
+        out = step(inputs, r1, r2, lens, lens)
+        counts = read_counts()
+        _require_launches(f"reduced {tag}", counts, ("dp_fwd", "mmp_seed", "locate"))
+        total.update(counts)
+        rec = dict(out_record(out))
+        if tag == "planted":
+            rec["report"] = spmd.spmd_report(out, SPMD_TIDS, mini_taxdb(), lens, lens)
+        bad = [f for f in want["spmd"][tag] if rec[f] != want["spmd"][tag][f]]
+        if bad:
+            raise AssertionError(f"[reduced] (b) {tag}: differs from the JAX record in {bad}")
+    w = small_dist_world()
+    dmesh = dist.make_mesh(4, devices=[dev] * 4)
+    keys = ("ref_shards", "seq_offsets", "seq_species")
+    dstep = dist.build_dist_align_step(dmesh, w["width"], w["n_species"])
+    zero_counts()
+    dout = dstep(dist.shard_arrays(dmesh, **{k: w[k] for k in keys}), w["reads"],
+                 w["read_lens"], w["cand_pos"])
+    counts = read_counts()
+    _require_launches("dist small", counts, ("dp_fwd",))
+    total.update(counts)
+    got = out_record(dout)
+    bad = [f for f in want["dist"] if got[f] != want["dist"][f]]
+    if bad:
+        raise AssertionError(f"[reduced] (b) dist: differs from the JAX record in {bad}")
+    print(f"[reduced] (b) the small worlds on 2 x 2 grids of {dev} (indexes built on the card): "
+          f"the reduced step on the planted and the edge batch (the float32 kept edge, the "
+          f"lowest-shard tie) with spmd_report's bytes, and dist (its highest-shard tie, the "
+          f"unmasked best_shard) equal the JAX record in every field, {time.perf_counter() - t:.3f}"
+          f" s; launches {dict(total)} [{smi}]")
+    return dict(total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4465,13 +4887,21 @@ def main() -> int:
     del toy
     large, large_hits, engine_s = phase_large(dev, smi, lat)
     t = time.perf_counter()
-    launches["dp_fwd"] += spmd_large(dev, smi, large, large_hits, engine_s)["dp_fwd"]
+    counts, large_dfm = spmd_large(dev, smi, large, large_hits, engine_s)
+    launches["dp_fwd"] += counts["dp_fwd"]
     spmd_a_s = time.perf_counter() - t
-    del large_hits
+    t = time.perf_counter()
+    reduced = collections.Counter(reduced_large(dev, smi, large, large_dfm, large_hits))
+    reduced.update(reduced_small(dev, smi))
+    reduced_s = time.perf_counter() - t
+    print(f"[reduced] phase 19 took {reduced_s:.1f} s; launches {dict(reduced)} [{smi}]")
+    del large_hits, large_dfm
     phase_pipeline_cascade(dev)
     phase_pipeline_world(dev, smi)
     counts = phase_pipeline_large(dev, smi, large)
     launches.update({k: counts[k] for k in ("dp_full", "mmp_seed", "locate")})
+    for k in ("dp_fwd", "mmp_seed", "locate"):
+        launches[k] += reduced[k]
     phase_cli(dev, smi, large)
     human = human_pairs(*large[2])
     del large
@@ -4490,7 +4920,7 @@ def main() -> int:
           f"(the default-shard phase {shard_s:.1f} s, the db phase {db_s:.1f} s, the "
           f"assembly phase {asm_s:.1f} s, the protein phase {prot_s:.1f} s, the amplicon "
           f"phase {amp_s:.1f} s, the rotation phase {rot_s:.1f} s, the spmd phase "
-          f"{spmd_a_s + spmd_s:.1f} s) [{smi}]")
+          f"{spmd_a_s + spmd_s:.1f} s, the reduced-step phase {reduced_s:.1f} s) [{smi}]")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[SERVED_BY.get(name, name)],

@@ -1,6 +1,12 @@
-"""The one-program backend of stage 2: the whole alignment engine run on
-the device for each (data, shard) cell of a grid of torch devices
-(``spmd_full``)."""
+"""The grid steps of stage 2, each cell of a (data, shard) grid of torch
+devices aligning one data block against one shard: the whole alignment
+engine (``spmd_full``, the pipeline's one-program backend), the reduced
+seed -> pair -> DP -> merge step (``spmd``) and the DP at given candidate
+positions (``dist``).
+
+``make_mesh`` is ``spmd_full.make_mesh``, which the pipeline and the CLI
+call; the reference's ``dist.make_mesh`` (a shard axis of 2 for an even
+device count) is reached by its module path."""
 
 from megapath_tpu_torch.parallel.spmd_full import (  # noqa: F401
     LEAN_CAPS,
@@ -16,4 +22,18 @@ from megapath_tpu_torch.parallel.spmd_full import (  # noqa: F401
     place_spmd_full_inputs,
     spmd_hits_to_batch,
     spmd_payload_stats,
+)
+from megapath_tpu_torch.parallel.spmd import (  # noqa: F401
+    SpmdAlignOut,
+    StackedFM,
+    build_spmd_engine_step,
+    make_mesh_for,
+    pad_and_index_shards,
+    place_spmd_inputs,
+    stack_fms,
+)
+from megapath_tpu_torch.parallel.dist import (  # noqa: F401
+    DistAlignOut,
+    build_dist_align_step,
+    shard_arrays,
 )

@@ -78,6 +78,15 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def float32_floor(ratio: float, values: torch.Tensor) -> torch.Tensor:
+    """int(ratio * values) with the product wholly in float32 (both
+    operands rounded to float32, the product too), as the reference's
+    programs compute their thresholds; int64. A float64 product of the
+    float32 ratio differs at some values (0.95 times a multiple of 20)."""
+    prod = torch.tensor(ratio, dtype=torch.float32) * values.to(torch.float32)
+    return prod.to(torch.int32).to(torch.int64)
+
+
 class FMMetaPad(NamedTuple):
     """The build parameters every shard of a grid shares. Each comes from
     the shards' tables (``fm_meta``); none has a default."""
@@ -192,12 +201,52 @@ class ShardTables(NamedTuple):
 
 
 class SpmdInputs(NamedTuple):
-    """Every cell's shard tables ([D][S]); the cells of a column that share
-    a device share one placement. ``placed`` holds each placement once,
-    keyed by (shard, device)."""
+    """Every cell's shard inputs ([D][S]: ``ShardTables`` here, the
+    reduced steps' own in ``spmd`` and ``dist``); the cells of a column
+    that share a device share one placement. ``placed`` holds each
+    placement once, keyed by (shard, device)."""
 
-    cells: Tuple[Tuple[ShardTables, ...], ...]
-    placed: Dict[Tuple[int, str], ShardTables]
+    cells: Tuple[Tuple[object, ...], ...]
+    placed: Dict[Tuple[int, str], object]
+
+
+def place_columns(mesh: Mesh, put: Callable[[int, torch.device], object]) -> SpmdInputs:
+    """``put(s, device)`` once for each shard s and each distinct device of
+    its column; every cell of the column on that device shares the result."""
+    S = mesh.shape["shard"]
+    placed: Dict[Tuple[int, str], object] = {}
+    for s in range(S):
+        for row in mesh.devices:
+            if (s, str(row[s])) not in placed:
+                placed[(s, str(row[s]))] = put(s, row[s])
+    cells = tuple(
+        tuple(placed[(s, str(row[s]))] for s in range(S)) for row in mesh.devices
+    )
+    return SpmdInputs(cells=cells, placed=placed)
+
+
+def run_cells(mesh: Mesh, cells, arrays: Sequence[torch.Tensor], fn) -> List[List[np.ndarray]]:
+    """Enqueue ``fn(s, cell, *block)`` for every cell, data row by data row:
+    ``block`` is row d's slice of each of ``arrays`` (host tensors whose
+    first axis splits into the grid's D rows), put on each distinct device
+    of the row once. Then each device's outputs (tensors of one shape) are
+    read back at once. Returns the [D][S] outputs as numpy."""
+    D = mesh.shape["data"]
+    Bl = arrays[0].shape[0] // D
+    outs: Dict[str, List[Tuple[int, int, torch.Tensor]]] = {}
+    for d, row in enumerate(mesh.devices):
+        blk = slice(d * Bl, (d + 1) * Bl)
+        uploaded: Dict[str, tuple] = {}
+        for s, dev in enumerate(row):
+            key = str(dev)
+            if key not in uploaded:
+                uploaded[key] = tuple(a[blk].to(dev, non_blocking=True) for a in arrays)
+            outs.setdefault(key, []).append((d, s, fn(s, cells[d][s], *uploaded[key])))
+    got: List[List[np.ndarray]] = [[None] * len(row) for row in mesh.devices]
+    for lst in outs.values():
+        for (d, s, _), a in zip(lst, torch.stack([o for _, _, o in lst]).cpu().numpy()):
+            got[d][s] = a
+    return got
 
 
 def place_spmd_full_inputs(
@@ -210,26 +259,19 @@ def place_spmd_full_inputs(
     S = mesh.shape["shard"]
     if len(shards) != S:
         raise ValueError(f"{len(shards)} shards for a grid of {S} shard columns")
-    placed: Dict[Tuple[int, str], ShardTables] = {}
+    hosts = []
     for s, (ref, fm) in enumerate(shards):
         host = HostFM.pack(fm)
         _check_meta(meta, host, f"shard {s}")
-        words = pack_ref_words(ref.codes).view(np.int32)
-        offs = np.asarray(ref.offsets, np.int64)
-        for row in mesh.devices:
-            dev = row[s]
-            if (s, str(dev)) in placed:
-                continue
-            placed[(s, str(dev))] = ShardTables(
-                dfm=host.upload(dev),
-                ref_words=torch.from_numpy(words).to(dev),
-                n_text=len(ref.codes),
-                seq_off=torch.from_numpy(offs).to(dev),
-            )
-    cells = tuple(
-        tuple(placed[(s, str(row[s]))] for s in range(S)) for row in mesh.devices
-    )
-    return SpmdInputs(cells=cells, placed=placed)
+        hosts.append((host, pack_ref_words(ref.codes).view(np.int32),
+                      np.asarray(ref.offsets, np.int64), len(ref.codes)))
+
+    def put(s: int, dev: torch.device) -> ShardTables:
+        host, words, offs, n_text = hosts[s]
+        return ShardTables(dfm=host.upload(dev), ref_words=torch.from_numpy(words).to(dev),
+                           n_text=n_text, seq_off=torch.from_numpy(offs).to(dev))
+
+    return place_columns(mesh, put)
 
 
 class StageEvents:
@@ -375,17 +417,11 @@ def build_spmd_full_engine(
     Wse = _round_up(L + 62, 64)
     Wrescue = _round_up(int(params.insert_high) + L + 62, 128)
     insert_high = int(params.insert_high)
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    cutoff_f = f32(params.cutoff_ratio)
-    short_f = f32(mmp.short_seed_ratio)
+    short_f = torch.tensor(mmp.short_seed_ratio, dtype=torch.float32)
     i64 = torch.int64
 
     def thr_of(lens):
-        # float32, as the reference's program computes it
-        return torch.clamp_min(
-            (cutoff_f * lens.to(torch.float32)).to(torch.int32).to(i64),
-            params.cutoff_lower_bound,
-        )
+        return float32_floor(params.cutoff_ratio, lens).clamp_min(params.cutoff_lower_bound)
 
     def local_step(cell: ShardTables, reads1, reads2, lens1, lens2, mark):
         dfm = cell.dfm
@@ -712,29 +748,16 @@ def build_spmd_full_engine(
         if B % D or host[0].shape[1] != L or host[1].shape[1] != L:
             raise ValueError(f"reads {tuple(host[0].shape)}, {tuple(host[1].shape)}: the "
                              f"step takes [D * Bl, {L}] with D = {D}")
-        Bl = B // D
         r1, r2 = host[0].to(torch.uint8), host[1].to(torch.uint8)
         l1, l2 = host[2].to(torch.int32), host[3].to(torch.int32)
+
+        def cell_step(s, cell, *block):
+            mark = timer.cell(block[0].device) if timer is not None else (lambda name: None)
+            return local_step(cell, *block, mark)
+
         # enqueue every cell's work, then read back once a device
-        outs: Dict[str, List[Tuple[int, int, torch.Tensor]]] = {}
-        for d, row in enumerate(mesh.devices):
-            blk = slice(d * Bl, (d + 1) * Bl)
-            uploaded: Dict[str, tuple] = {}
-            for s, dev in enumerate(row):
-                key = str(dev)
-                if key not in uploaded:
-                    uploaded[key] = tuple(
-                        a[blk].to(dev, non_blocking=True) for a in (r1, r2, l1, l2))
-                mark = timer.cell(dev) if timer is not None else (lambda name: None)
-                out = local_step(inputs.cells[d][s], *uploaded[key], mark)
-                outs.setdefault(key, []).append((d, s, out))
-        H = None
-        fields = [[None] * S for _ in range(D)]
-        for key, lst in outs.items():
-            got = torch.stack([o for _, _, o in lst]).cpu().numpy()
-            for (d, s, _), vec in zip(lst, got):
-                fields[d][s] = vec
-                H = (vec.shape[0] - 1) // N_OUT
+        fields = run_cells(mesh, inputs.cells, (r1, r2, l1, l2), cell_step)
+        H = (fields[0][0].shape[0] - 1) // N_OUT
         arr = np.stack([np.stack(r) for r in fields])  # [D, S, N_OUT * H + 1]
         tab = arr[:, :, :-1].reshape(D, S, N_OUT, H)
         cols = [tab[:, :, k] for k in range(N_OUT)]

@@ -75,6 +75,8 @@ import megapath_tpu_torch.pipeline.amplicon
 import megapath_tpu_torch.io.vcf
 import megapath_tpu_torch.parallel
 import megapath_tpu_torch.parallel.spmd_full
+import megapath_tpu_torch.parallel.spmd
+import megapath_tpu_torch.parallel.dist
 import chip_smoke
 
 # the subcommands import their modules when they run: run each host tool
