@@ -21,6 +21,7 @@ it, so a shard reaches the card only through the rotation.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -46,7 +47,14 @@ from megapath_tpu_torch.align.seeding import (
 from megapath_tpu_torch.align.seeding_dev import DeviceFM, HostFM, device_seed_pipeline_loc
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import COMPLEMENT, PackedReference
+from megapath_tpu_torch.ops import _build
 from megapath_tpu_torch.ops.dp import DPParams
+from megapath_tpu_torch.utils.timing import span
+
+# the pairs ``_exact_rescue`` was given and those it re-ran through the
+# exact walk, over every engine and batch (counted through ``_build.count``)
+rescue_seen_pairs = 0
+rescue_pairs = 0
 
 
 @dataclass
@@ -491,27 +499,31 @@ class AlignEngine:
         n = len(reads1)
         if not dialed or not n:
             return hits
-        have = np.zeros((2, n), bool)
-        if len(hits):
-            have[hits.end, hits.read] = True
-        needy = np.flatnonzero(~(have[0] & have[1]))
-        if len(needy) == 0:
-            return hits
-        if len(needy) > n // 2:
-            self._exact_direct = True
-        sub = self._run_exact(
-            reads1[needy], lens1[needy], reads2[needy], lens2[needy]
-        )
-        keep = (
-            ~np.isin(hits.read, needy) if len(hits) else
-            np.zeros(0, bool)
-        )
-        old = BatchHits(
-            *[getattr(hits, f.name)[keep] for f in dataclasses.fields(BatchHits)]
-        )
-        if len(sub):
-            sub.read[:] = needy[sub.read]
-        return BatchHits.concat([old, sub])
+        with span("align.rescue"):
+            with span("align.rescue.select"):
+                have = np.zeros((2, n), bool)
+                if len(hits):
+                    have[hits.end, hits.read] = True
+                needy = np.flatnonzero(~(have[0] & have[1]))
+                _build.count(sys.modules[__name__], "rescue_seen_pairs", n)
+                if len(needy) == 0:
+                    return hits
+                _build.count(sys.modules[__name__], "rescue_pairs", len(needy))
+                if len(needy) > n // 2:
+                    self._exact_direct = True
+                rows = (reads1[needy], lens1[needy], reads2[needy], lens2[needy])
+            sub = self._run_exact(*rows)
+            with span("align.rescue.splice"):
+                keep = (
+                    ~np.isin(hits.read, needy) if len(hits) else
+                    np.zeros(0, bool)
+                )
+                old = BatchHits(
+                    *[getattr(hits, f.name)[keep] for f in dataclasses.fields(BatchHits)]
+                )
+                if len(sub):
+                    sub.read[:] = needy[sub.read]
+                return BatchHits.concat([old, sub])
 
     def _align_pairs_impl(
         self,
@@ -525,11 +537,14 @@ class AlignEngine:
         self._batches += 1
         batch = self._batches
         self._batch_dev = None
-        L = max(reads1.shape[1], reads2.shape[1])
-        allr = np.zeros((2 * n, L), dtype=np.uint8)
-        allr[:n, : reads1.shape[1]] = reads1
-        allr[n:, : reads2.shape[1]] = reads2
-        all_lens = np.concatenate([lens1, lens2]).astype(np.int32)
+        # the spans align.pass.* name the parts of this pass; under the
+        # exact rescue they sit inside its align.rescue
+        with span("align.pass.seed"):
+            L = max(reads1.shape[1], reads2.shape[1])
+            allr = np.zeros((2 * n, L), dtype=np.uint8)
+            allr[:n, : reads1.shape[1]] = reads1
+            allr[n:, : reads2.shape[1]] = reads2
+            all_lens = np.concatenate([lens1, lens2]).astype(np.int32)
 
         # deep-DP rounds (alignment.cpp:91-137): round r re-seeds only
         # the still-unaligned pairs with that round's MmpParams. Seeds
@@ -543,43 +558,48 @@ class AlignEngine:
             if len(todo) == 0:
                 break
             t = len(todo)
-            if t == n:
-                sub_reads, sub_lens = allr, all_lens
-                # the whole batch: its walker matrix serves the DP
-                sp = self.seed_positions(sub_reads, sub_lens, mmp, batch=batch)
-            else:
-                sel = np.concatenate([todo, todo + n])
-                sub_reads, sub_lens = allr[sel], all_lens[sel]
-                sp = self.seed_positions(sub_reads, sub_lens, mmp)
-            m1 = sp.read < t
-            sp1 = SeedPositions(
-                todo[sp.read[m1]].astype(np.int32),
-                sp.strand[m1], sp.pos[m1], sp.coverage[m1],
-            )
-            m2 = ~m1
-            sp2 = SeedPositions(
-                todo[sp.read[m2] - t].astype(np.int32),
-                sp.strand[m2], sp.pos[m2], sp.coverage[m2],
-            )
+            with span("align.pass.seed"):
+                if t == n:
+                    sub_reads, sub_lens = allr, all_lens
+                    # the whole batch: its walker matrix serves the DP
+                    sp = self.seed_positions(sub_reads, sub_lens, mmp, batch=batch)
+                else:
+                    sel = np.concatenate([todo, todo + n])
+                    sub_reads, sub_lens = allr[sel], all_lens[sel]
+                    sp = self.seed_positions(sub_reads, sub_lens, mmp)
+                m1 = sp.read < t
+                sp1 = SeedPositions(
+                    todo[sp.read[m1]].astype(np.int32),
+                    sp.strand[m1], sp.pos[m1], sp.coverage[m1],
+                )
+                m2 = ~m1
+                sp2 = SeedPositions(
+                    todo[sp.read[m2] - t].astype(np.int32),
+                    sp.strand[m2], sp.pos[m2], sp.coverage[m2],
+                )
             sp1_parts.append(sp1)
             sp2_parts.append(sp2)
 
-            cands = pair_candidates(sp1, sp2, lens1, lens2, params)
-            paired_hits, aligned_pairs = self._deep_dp(
-                cands, allr, all_lens, n, batch
-            )
-            hits_parts.append(paired_hits)
-            todo = np.setdiff1d(todo, aligned_pairs)
+            with span("align.pass.pair"):
+                cands = pair_candidates(sp1, sp2, lens1, lens2, params)
+            with span("align.pass.deep_dp"):
+                paired_hits, aligned_pairs = self._deep_dp(
+                    cands, allr, all_lens, n, batch
+                )
+                hits_parts.append(paired_hits)
+                todo = np.setdiff1d(todo, aligned_pairs)
 
         # leftover pairs -> single-end DP + mate rescue + unpaired
         if len(todo):
-            hits_parts.append(
-                self._single_and_rescue(
-                    todo, _concat_sp(sp1_parts), _concat_sp(sp2_parts),
-                    allr, all_lens, n, batch,
+            with span("align.pass.single"):
+                hits_parts.append(
+                    self._single_and_rescue(
+                        todo, _concat_sp(sp1_parts), _concat_sp(sp2_parts),
+                        allr, all_lens, n, batch,
+                    )
                 )
-            )
-        return BatchHits.concat(hits_parts)
+        with span("align.pass.splice"):
+            return BatchHits.concat(hits_parts)
 
     # ------------------------------------------------------------------
     def _deep_dp(

@@ -147,10 +147,11 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def count(module, name: str) -> None:
-    """Add one to the launch count ``module.name``. A bare ``+= 1`` on a
-    module global can lose counts when pool threads launch at once; the
-    counts show that a path went through its kernels, so they must be
-    exact. Resetting a count is a plain assignment."""
+def count(module, name: str, n: int = 1) -> None:
+    """Add ``n`` to the count ``module.name`` (a kernel's launches, or the
+    pairs a stage handled). A bare ``+= 1`` on a module global can lose
+    counts when pool threads launch at once; the counts show that a path
+    went through its kernels, so they must be exact. Resetting a count is
+    a plain assignment."""
     with _count_lock:
-        setattr(module, name, getattr(module, name) + 1)
+        setattr(module, name, getattr(module, name) + n)

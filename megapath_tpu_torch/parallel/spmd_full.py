@@ -66,6 +66,7 @@ from megapath_tpu_torch.align.seeding_dev import (
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import PackedReference
 from megapath_tpu_torch.ops.dp import OFF_TEXT_CODE, DPParams, sw_align_auto
+from megapath_tpu_torch.utils.timing import span
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -230,7 +231,9 @@ def run_cells(mesh: Mesh, cells, arrays: Sequence[torch.Tensor], fn) -> List[Lis
     ``block`` is row d's slice of each of ``arrays`` (host tensors whose
     first axis splits into the grid's D rows), put on each distinct device
     of the row once. Then each device's outputs (tensors of one shape) are
-    read back at once. Returns the [D][S] outputs as numpy."""
+    read back at once. Returns the [D][S] outputs as numpy. Spans:
+    ``nt.step.upload`` (a block's copies), ``nt.step.enqueue`` (a cell's
+    ``fn``), ``nt.step.readback`` (where the host waits for the devices)."""
     D = mesh.shape["data"]
     Bl = arrays[0].shape[0] // D
     outs: Dict[str, List[Tuple[int, int, torch.Tensor]]] = {}
@@ -240,12 +243,15 @@ def run_cells(mesh: Mesh, cells, arrays: Sequence[torch.Tensor], fn) -> List[Lis
         for s, dev in enumerate(row):
             key = str(dev)
             if key not in uploaded:
-                uploaded[key] = tuple(a[blk].to(dev, non_blocking=True) for a in arrays)
-            outs.setdefault(key, []).append((d, s, fn(s, cells[d][s], *uploaded[key])))
+                with span("nt.step.upload"):
+                    uploaded[key] = tuple(a[blk].to(dev, non_blocking=True) for a in arrays)
+            with span("nt.step.enqueue"):
+                outs.setdefault(key, []).append((d, s, fn(s, cells[d][s], *uploaded[key])))
     got: List[List[np.ndarray]] = [[None] * len(row) for row in mesh.devices]
-    for lst in outs.values():
-        for (d, s, _), a in zip(lst, torch.stack([o for _, _, o in lst]).cpu().numpy()):
-            got[d][s] = a
+    with span("nt.step.readback"):
+        for lst in outs.values():
+            for (d, s, _), a in zip(lst, torch.stack([o for _, _, o in lst]).cpu().numpy()):
+                got[d][s] = a
     return got
 
 

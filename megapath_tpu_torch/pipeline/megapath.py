@@ -80,7 +80,7 @@ from megapath_tpu_torch.pipeline.assembly import (
 )
 from megapath_tpu_torch.taxonomy.report import KrakenReport
 from megapath_tpu_torch.taxonomy.taxdb import TaxDB, get_correct_acc, remove_version
-from megapath_tpu_torch.utils.timing import StageTimer
+from megapath_tpu_torch.utils.timing import StageTimer, span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -809,27 +809,29 @@ class MegaPathPipeline:
         the pipeline's device. With them the shards' alignments go to the
         thread pool; with more shards than devices in waves of
         ``len(devices)`` shards, each committed before its alignments and
-        evicted after them, so at most one shard a device is resident."""
+        evicted after them, so at most one shard a device is resident.
+        Under a profiler the batch is one ``nt.batch`` span."""
         if not n:
             return [BatchHits.empty() for _ in self.nt_engines]
-        if self._spmd is not None:
-            return self._align_shards_spmd(reads1, lens1, reads2, lens2, n)
-        args = (reads1, lens1, reads2, lens2)
-        engines = self.nt_engines
-        if not self._wave_shards:
-            return self._align_wave(engines, args)
-        out: List[BatchHits] = []
-        step = self._n_devices
-        for w0 in range(0, len(engines), step):
-            wave = engines[w0 : w0 + step]
-            try:
-                for eng in wave:
-                    eng.commit()
-                out += self._align_wave(wave, args)
-            finally:
-                for eng in wave:
-                    eng.evict()
-        return out
+        with span("nt.batch"):
+            if self._spmd is not None:
+                return self._align_shards_spmd(reads1, lens1, reads2, lens2, n)
+            args = (reads1, lens1, reads2, lens2)
+            engines = self.nt_engines
+            if not self._wave_shards:
+                return self._align_wave(engines, args)
+            out: List[BatchHits] = []
+            step = self._n_devices
+            for w0 in range(0, len(engines), step):
+                wave = engines[w0 : w0 + step]
+                try:
+                    for eng in wave:
+                        eng.commit()
+                    out += self._align_wave(wave, args)
+                finally:
+                    for eng in wave:
+                        eng.evict()
+            return out
 
     def _init_spmd(self, nt_shards, devs, nt_params: AlignParams) -> None:
         """The one-program backend's grid and each shard's tables on the
@@ -871,13 +873,16 @@ class MegaPathPipeline:
             out[: len(a)] = a
             return out
 
-        return Bl, L, (pad2(reads1), pad2(reads2), pad1(lens1), pad1(lens2))
+        with span("nt.pad"):
+            return Bl, L, (pad2(reads1), pad2(reads2), pad1(lens1), pad1(lens2))
 
     def _align_shards_spmd(self, reads1, lens1, reads2, lens2, n) -> List[BatchHits]:
         """Stage 2 through the one-program step: every shard against the
         batch in one step over the grid, the [D, S, H] output turned into
         the per-shard BatchHits the engines give (pad pairs emit
-        nothing)."""
+        nothing). Spans: ``nt.pad``, an ``nt.step`` for each level tried,
+        ``nt.gather`` (the tables, their payload and the trim to the
+        batch's pairs) and each shard's ``align.rescue``."""
         from megapath_tpu_torch.parallel.spmd_full import (
             LEAN_CAPS,
             SpmdCaps,
@@ -898,10 +903,12 @@ class MegaPathPipeline:
             if step is None:
                 step = sp["steps"][key + (tag,)] = build_spmd_full_engine(
                     sp["mesh"], sp["meta"], L, params=sp["params"], caps=caps)
-            out = step(sp["inputs"], *args)
+            with span("nt.step"):
+                out = step(sp["inputs"], *args)
             sp["tried"].append(tag)
             try:
-                per_shard = spmd_hits_to_batch(out, Bl)
+                with span("nt.gather"):
+                    per_shard = spmd_hits_to_batch(out, Bl)
             except RuntimeError:
                 if lvl == len(ladder) - 1:
                     raise
@@ -909,11 +916,12 @@ class MegaPathPipeline:
             sp["ladder_start"][key] = lvl
             sp["level"] = tag
             break
-        sp["payload"] = spmd_payload_stats(out, Bl, n_real_pairs=n)
-        per_shard = [
-            BatchHits(*[getattr(h, f.name)[h.read < n] for f in dataclasses.fields(BatchHits)])
-            for h in per_shard
-        ]
+        with span("nt.gather"):
+            sp["payload"] = spmd_payload_stats(out, Bl, n_real_pairs=n)
+            per_shard = [
+                BatchHits(*[getattr(h, f.name)[h.read < n] for f in dataclasses.fields(BatchHits)])
+                for h in per_shard
+            ]
         if self.cfg.exact:
             # the step walks with the dials; the pairs it leaves with a
             # zero-hit end go through each shard engine's exact rescue

@@ -407,6 +407,19 @@ def test_launch_counts_are_exact_under_threads():
     assert counts.launches == N_THREADS * 2000
 
 
+def test_counts_of_many_are_exact_under_threads():
+    """``count(module, name, n)`` adds ``n`` (the pairs a stage handled),
+    under the same lock."""
+    counts = types.SimpleNamespace(pairs=0)
+
+    def bump():
+        for k in range(2000):
+            _build.count(counts, "pairs", k % 7)
+
+    _at_once(bump)
+    assert counts.pairs == N_THREADS * sum(k % 7 for k in range(2000))
+
+
 @pytest.mark.parametrize("module,names", [
     (dp_cuda, ("launches", "fwd_launches")),
     (seed_cuda, ("walk_launches", "locate_launches")),
