@@ -49,6 +49,7 @@ and its plans (``staged_walk``, ``plan_fast``) and the probe-only
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -59,6 +60,7 @@ from megapath_tpu_torch.align.device import gather_windows_packed, pack_ref_word
 from megapath_tpu_torch.align.engine import BatchHits
 from megapath_tpu_torch.align.params import AlignParams
 from megapath_tpu_torch.align.seeding_dev import (
+    I32_MAX,
     DeviceFM,
     HostFM,
     _chain_anchors,
@@ -72,8 +74,19 @@ from megapath_tpu_torch.align.seeding_dev import (
 )
 from megapath_tpu_torch.index.fm import FMIndex
 from megapath_tpu_torch.index.pack import PackedReference
+from megapath_tpu_torch.ops import _build
 from megapath_tpu_torch.ops.dp import OFF_TEXT_CODE, DPParams, sw_align_auto
 from megapath_tpu_torch.utils.timing import span
+
+# over every call (counted through ``_build.count``): the SA rows the steps
+# located and the real pairs of their batches, the level that served each
+# batch only (``MegaPathPipeline._align_shards_spmd``); the host
+# milliseconds ``place_spmd_full_inputs`` spent packing the shards' tables
+# and putting them on their devices
+step_rows = 0
+step_pairs = 0
+pack_ms = 0.0
+upload_ms = 0.0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -262,23 +275,35 @@ def place_spmd_full_inputs(
 ) -> SpmdInputs:
     """Pack each shard's tables on the host once and put them on each
     distinct device of its column once, so that a step ships only the
-    reads."""
+    reads. Spans ``nt.pack`` and ``nt.upload``; their host times add to
+    the counters ``pack_ms`` and ``upload_ms`` (the upload's up to a
+    synchronise of the cards)."""
     S = mesh.shape["shard"]
     if len(shards) != S:
         raise ValueError(f"{len(shards)} shards for a grid of {S} shard columns")
+    mod = sys.modules[__name__]
+    t = time.perf_counter()
     hosts = []
-    for s, (ref, fm) in enumerate(shards):
-        host = HostFM.pack(fm)
-        _check_meta(meta, host, f"shard {s}")
-        hosts.append((host, pack_ref_words(ref.codes).view(np.int32),
-                      np.asarray(ref.offsets, np.int64), len(ref.codes)))
+    with span("nt.pack"):
+        for s, (ref, fm) in enumerate(shards):
+            host = HostFM.pack(fm)
+            _check_meta(meta, host, f"shard {s}")
+            hosts.append((host, pack_ref_words(ref.codes).view(np.int32),
+                          np.asarray(ref.offsets, np.int64), len(ref.codes)))
+    _build.count(mod, "pack_ms", 1e3 * (time.perf_counter() - t))
 
     def put(s: int, dev: torch.device) -> ShardTables:
         host, words, offs, n_text = hosts[s]
         return ShardTables(dfm=host.upload(dev), ref_words=torch.from_numpy(words).to(dev),
                            n_text=n_text, seq_off=torch.from_numpy(offs).to(dev))
 
-    return place_columns(mesh, put)
+    t = time.perf_counter()
+    with span("nt.upload"):
+        inputs = place_columns(mesh, put)
+        for dev in {d for row in mesh.devices for d in row if d.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+    _build.count(mod, "upload_ms", 1e3 * (time.perf_counter() - t))
+    return inputs
 
 
 class StageEvents:
@@ -355,7 +380,9 @@ def build_spmd_full_engine(
     ``place_spmd_full_inputs``; reads uint8 [B, L] and lengths [B] (numpy
     or CPU tensors) with B = D * Bl, block d = rows d * Bl .. (d+1) * Bl - 1.
     The step refuses shard tables that disagree with ``meta``. ``timer``,
-    a ``StageEvents``, records each cell's stages."""
+    a ``StageEvents``, records each cell's stages; ``located``, a list,
+    gets the [D, S] SA rows each cell located (int64, before any cap)
+    appended, read back with the tables."""
     L = read_len
     if len(params.seeding_rounds) != 1:
         raise NotImplementedError("spmd_full supports single-round seeding")
@@ -684,11 +711,14 @@ def build_spmd_full_engine(
         table = torch.stack([c.to(torch.int32)[ordr] for c in cols])
         table[0] &= (ar(H_cap) < n_hits).to(torch.int32)
         overflow = torch.stack(flags).any().to(torch.int32).reshape(1)
+        # the located rows ride the same read-back, as two int32 words
+        located = torch.stack([total & I32_MAX, total >> 31]).to(torch.int32)
         mark("compact")
-        return torch.cat([table.reshape(-1), overflow])
+        return torch.cat([table.reshape(-1), overflow, located])
 
     def step(inputs: SpmdInputs, reads1, reads2, lens1, lens2,
-             timer: Optional[StageEvents] = None) -> SpmdHits:
+             timer: Optional[StageEvents] = None,
+             located: Optional[List[np.ndarray]] = None) -> SpmdHits:
         D, S = mesh.shape["data"], mesh.shape["shard"]
         for row in inputs.cells:
             for s, cell in enumerate(row):
@@ -707,13 +737,15 @@ def build_spmd_full_engine(
 
         # enqueue every cell's work, then read back once a device
         fields = run_cells(mesh, inputs.cells, (r1, r2, l1, l2), cell_step)
-        H = (fields[0][0].shape[0] - 1) // N_OUT
-        arr = np.stack([np.stack(r) for r in fields])  # [D, S, N_OUT * H + 1]
-        tab = arr[:, :, :-1].reshape(D, S, N_OUT, H)
+        H = (fields[0][0].shape[0] - 3) // N_OUT
+        arr = np.stack([np.stack(r) for r in fields])  # [D, S, N_OUT * H + 3]
+        tab = arr[:, :, :-3].reshape(D, S, N_OUT, H)
         cols = [tab[:, :, k] for k in range(N_OUT)]
         cols[0] = cols[0].astype(bool)
         cols[9] = cols[9].astype(bool)
-        return SpmdHits(*cols, overflow=arr[:, :, -1].astype(np.int32))
+        if located is not None:
+            located.append(arr[:, :, -2].astype(np.int64) + (arr[:, :, -1].astype(np.int64) << 31))
+        return SpmdHits(*cols, overflow=arr[:, :, -3].astype(np.int32))
 
     return step
 

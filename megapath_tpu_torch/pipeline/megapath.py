@@ -882,7 +882,11 @@ class MegaPathPipeline:
         the per-shard BatchHits the engines give (pad pairs emit
         nothing). Spans: ``nt.pad``, an ``nt.step`` for each level tried,
         ``nt.gather`` (the tables, their payload and the trim to the
-        batch's pairs) and each shard's ``align.rescue``."""
+        batch's pairs) and each shard's ``align.rescue``. Counters, of the
+        level that served the batch: ``spmd_full.step_rows`` (the SA rows
+        its cells located) and ``step_pairs`` (the batch's real pairs)."""
+        from megapath_tpu_torch.ops import _build
+        from megapath_tpu_torch.parallel import spmd_full
         from megapath_tpu_torch.parallel.spmd_full import (
             LEAN_CAPS,
             SpmdCaps,
@@ -903,8 +907,9 @@ class MegaPathPipeline:
             if step is None:
                 step = sp["steps"][key + (tag,)] = build_spmd_full_engine(
                     sp["mesh"], sp["meta"], L, params=sp["params"], caps=caps)
+            located: List[np.ndarray] = []
             with span("nt.step"):
-                out = step(sp["inputs"], *args)
+                out = step(sp["inputs"], *args, located=located)
             sp["tried"].append(tag)
             try:
                 with span("nt.gather"):
@@ -915,6 +920,8 @@ class MegaPathPipeline:
                 continue
             sp["ladder_start"][key] = lvl
             sp["level"] = tag
+            _build.count(spmd_full, "step_rows", int(located[0].sum()))
+            _build.count(spmd_full, "step_pairs", n)
             break
         with span("nt.gather"):
             sp["payload"] = spmd_payload_stats(out, Bl, n_real_pairs=n)
