@@ -6,8 +6,9 @@ DP on paired candidates, single-end DP for leftover reads, insert-window
 mate rescue, and unpaired output. The DP of every stage runs on the
 engine's torch device. Seeding runs on the host (numpy MMP walk and SA
 locate, ``device_seeding=False``) or on the device (``seeding_dev``: the
-walk and the locate as CUDA kernels on a card, the decode in torch ops
-where they ran, ``device_seeding=True``);
+walk and the locate as CUDA kernels on a card, the decode and the
+insert-window pairing (``pairing_dev``) in torch ops where they ran,
+``device_seeding=True``);
 on the device path the DP gathers its candidate reads from the walk's
 resident walker matrix. The two paths follow the reference's two paths
 and give its hits on each.
@@ -37,6 +38,7 @@ from megapath_tpu_torch.align.device import (
     pack_ref_words,
 )
 from megapath_tpu_torch.align.pairing import Candidates, pair_candidates
+from megapath_tpu_torch.align.pairing_dev import pair_candidates_device
 from megapath_tpu_torch.align.params import AlignParams
 from megapath_tpu_torch.align.seeding import (
     SeedPositions,
@@ -160,6 +162,15 @@ class _BatchDev(NamedTuple):
     nb: int
 
 
+class _SeedsDev(NamedTuple):
+    """A device-seeding call's kept clusters as they lie on the device
+    (``decode_seeds_device``'s int64 [4, K] rows) and the seeded read
+    ends' padded lengths, for the pairing of the same round."""
+
+    kept: torch.Tensor
+    lens: torch.Tensor
+
+
 class AlignEngine:
     """One NT-shard aligner instance on one torch device."""
 
@@ -260,14 +271,23 @@ class AlignEngine:
         alignment.cpp:91-137). ``batch`` is the token of a call that seeds
         a whole batch: its walker matrix then stays on the device for that
         batch's DP."""
+        return self._seed(reads, lens, mmp, batch)[0]
+
+    def _seed(
+        self, reads: np.ndarray, lens: np.ndarray, mmp=None,
+        batch: Optional[int] = None,
+    ) -> Tuple[SeedPositions, Optional[_SeedsDev]]:
+        """``seed_positions``, and on device seeding the kept clusters
+        where the decode left them (None on host seeding)."""
         mmp = mmp or self.params.mmp
         if self._device_seeding:
             self._require_committed()
             flat, pos, lens_d, nb = self._device_seeds_pos(reads, lens, mmp, batch)
-            return decode_seeds_device(flat, pos, lens_d, len(reads), nb, mmp)
+            sp, kept = decode_seeds_device(flat, pos, lens_d, len(reads), nb, mmp)
+            return sp, _SeedsDev(kept, lens_d)
         walkers, wlens = make_walkers_fast(reads, lens)
         seeds = mmp_seed(walkers, wlens, self.fm, mmp)
-        return decode_seeds(seeds, self.fm, lens, len(reads), mmp)
+        return decode_seeds(seeds, self.fm, lens, len(reads), mmp), None
 
     def _device_seeds_pos(
         self, reads: np.ndarray, lens: np.ndarray, mmp, batch: Optional[int]
@@ -557,11 +577,11 @@ class AlignEngine:
                 if t == n:
                     sub_reads, sub_lens = allr, all_lens
                     # the whole batch: its walker matrix serves the DP
-                    sp = self.seed_positions(sub_reads, sub_lens, mmp, batch=batch)
+                    sp, sdev = self._seed(sub_reads, sub_lens, mmp, batch=batch)
                 else:
                     sel = np.concatenate([todo, todo + n])
                     sub_reads, sub_lens = allr[sel], all_lens[sel]
-                    sp = self.seed_positions(sub_reads, sub_lens, mmp)
+                    sp, sdev = self._seed(sub_reads, sub_lens, mmp)
                 m1 = sp.read < t
                 sp1 = SeedPositions(
                     todo[sp.read[m1]].astype(np.int32),
@@ -576,7 +596,14 @@ class AlignEngine:
             sp2_parts.append(sp2)
 
             with span("align.pass.pair"):
-                cands = pair_candidates(sp1, sp2, lens1, lens2, params)
+                if sdev is None:
+                    cands = pair_candidates(sp1, sp2, lens1, lens2, params)
+                else:
+                    # the clusters' read ends are this round's: pair i is todo[i]
+                    cands = pair_candidates_device(
+                        *sdev.kept[:3], sdev.lens, t, params,
+                        None if t == n else self._to_dev(todo),
+                    )
             with span("align.pass.deep_dp"):
                 paired_hits, aligned_pairs = self._deep_dp(
                     cands, allr, all_lens, n, batch

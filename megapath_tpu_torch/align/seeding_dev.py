@@ -19,7 +19,8 @@ The flatten and expansion size their buffers from the counts (one sync
 each), so there are no caps and no overflow fallbacks. The decode
 (``decode_seeds_device``) runs in torch ops at those exact sizes, with the
 sort and segment helpers that the one-program step
-(``parallel/spmd_full.py``) runs at its static caps.
+(``parallel/spmd_full.py``) runs at its static caps; its kept clusters
+stay on the device for the pairing (``pairing_dev``).
 
 The walk computes the reseed test and the progress kill in float32, as
 the JAX device walk does. The host walk (``seeding.mmp_seed``) computes
@@ -685,7 +686,7 @@ def decode_seeds_device(
     n_reads: int,
     nb: int,
     params: MmpParams,
-) -> SeedPositions:
+) -> Tuple[SeedPositions, torch.Tensor]:
     """``seeding.decode_seeds`` on the seeds' device: the output of
     ``device_seed_pipeline_loc`` over ``nb`` padded reads, of which the
     first ``n_reads`` are real, clustered and filtered where it lies, and
@@ -695,14 +696,18 @@ def decode_seeds_device(
     them (walker rows nb.. become n_reads..), (walker, start) sorted
     stably as ``np.lexsort``, anchor chains of ``indel_fuzz`` marked by
     pointer doubling, and the coverage test in float64 as numpy computes
-    it. Every size is exact, taken from the seeds and positions."""
+    it. Every size is exact, taken from the seeds and positions.
+
+    Returns the host ``SeedPositions`` and the same kept clusters as they
+    lie on the device, int64 [4, K] rows (read, strand, pos, coverage),
+    for the pairing of the same pass (``pairing_dev``)."""
     R = pos.shape[0]
+    dev = pos.device
     if len(flat.walker) == 0 or R == 0:
         z = np.zeros(0)
         return SeedPositions(
             z.astype(np.int32), z.astype(np.int8), z.astype(np.int64), z.astype(np.int32)
-        )
-    dev = pos.device
+        ), torch.zeros((4, 0), dtype=torch.int64, device=dev)
     i64 = torch.int64
     cnt = flat.sa_count.to(i64)
     sidx = torch.repeat_interleave(
@@ -760,9 +765,10 @@ def decode_seeds_device(
         >= params.short_seed_ratio * best[cl_read].to(torch.float64)
     )
     idx = torch.nonzero(keep).squeeze(1)
-    read, strand, cpos, ccov = torch.stack(
+    kept = torch.stack(
         (cl_read[idx], (cl_walker[idx] >= n_reads).to(i64), cl_pos[idx], cov[idx])
-    ).cpu().numpy()
+    )
+    read, strand, cpos, ccov = kept.cpu().numpy()
     mod = sys.modules[__name__]
     _build.count(mod, "decode_rows_device", R)
     _build.count(mod, "decode_kept_device", len(read))
@@ -771,4 +777,4 @@ def decode_seeds_device(
         strand=strand.astype(np.int8),
         pos=cpos,
         coverage=ccov.astype(np.int32),
-    )
+    ), kept

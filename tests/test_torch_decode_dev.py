@@ -170,8 +170,12 @@ def test_device_decode_equals_host_decode(world, case):
         flat, pos, lens, lens_d = synthetic(seeds, n, nb, lens=rl)
     want = host_decode(flat, pos, lens, n, nb, mmp)
     rows0, kept0 = sd.decode_rows_device, sd.decode_kept_device
-    got = sd.decode_seeds_device(flat, pos, lens_d, n, nb, mmp)
+    got, kept = sd.decode_seeds_device(flat, pos, lens_d, n, nb, mmp)
     assert_same(got, want)
+    # the same clusters stay on the device for the pairing
+    assert kept.dtype == torch.int64 and kept.shape == (4, len(want.read))
+    for row, f in zip(kept.numpy(), FIELDS):
+        np.testing.assert_array_equal(row, getattr(want, f), err_msg=f)
     assert sd.decode_rows_device - rows0 == (len(pos) if len(flat.walker) else 0)
     assert sd.decode_kept_device - kept0 == len(want.read)
     if case.startswith("coverage"):
@@ -197,11 +201,11 @@ def test_device_decode_equals_host_decode_on_the_card(world, card):
         flat, pos, lens_d, nb = walk(sd.DeviceFM.from_host(fm, card), reads, lens, mmp, card)
         want = host_decode(flat, pos, lens, len(reads), nb, mmp)
         assert len(want.read) > 0
-        assert_same(sd.decode_seeds_device(flat, pos, lens_d, len(reads), nb, mmp), want)
+        assert_same(sd.decode_seeds_device(flat, pos, lens_d, len(reads), nb, mmp)[0], want)
     rng = np.random.default_rng(7)
     n, nb = 4000, 4096
     flat, pos, hl, lens_d = synthetic(random_seeds(rng, n, nb, 20000, DEFAULT), n, nb, L=150,
                                       device=card)
     assert len(pos) > 50000
     want = host_decode(flat, pos, hl, n, nb, DEFAULT)
-    assert_same(sd.decode_seeds_device(flat, pos, lens_d, n, nb, DEFAULT), want)
+    assert_same(sd.decode_seeds_device(flat, pos, lens_d, n, nb, DEFAULT)[0], want)

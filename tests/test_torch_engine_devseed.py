@@ -20,6 +20,7 @@ from megapath_tpu.index.pack import pack_fasta, pack_fasta_file, pack_reads
 from megapath_tpu.io.fastq import FastqRecord as JRecord
 from megapath_tpu.io.fastq import read_fastx
 from megapath_tpu_torch.align import engine as tengine
+from megapath_tpu_torch.align import pairing_dev as pdev
 from megapath_tpu_torch.align import params as tparams
 from megapath_tpu_torch.align import seeding_dev as sd
 from megapath_tpu_torch.align.engine import AlignEngine
@@ -147,8 +148,9 @@ def test_exact_rescue_decodes_where_the_engine_seeds(worlds, device_seeding):
     """A batch with a fifth of its second ends scrambled: the dialed pass
     and the exact rescue of its zero-hit pairs give the JAX engine's
     BatchHits, each step on its own and through align_pairs. Seeding on
-    the device decodes there (its counters count every located row and
-    kept cluster); seeding on the host leaves them as they were."""
+    the device decodes and pairs there (the counters count every located
+    row, kept cluster, cluster paired and candidate); seeding on the host
+    leaves them as they were."""
     ref, fm, (reads1, lens1, reads2, lens2) = worlds["align"]
     rng = np.random.default_rng(12)
     junk = rng.random(len(lens1)) < 0.2
@@ -158,20 +160,25 @@ def test_exact_rescue_decodes_where_the_engine_seeds(worlds, device_seeding):
     jp = jparams.AlignParams()
     jeng = JAlignEngine(ref, fm, jp, device_seeding=device_seeding)
     teng = engine_from_reference(ref, fm, jp, CPU, device_seeding=device_seeding)
-    before = (sd.decode_rows_device, sd.decode_kept_device, tengine.rescue_pairs)
+
+    def counters():
+        return (sd.decode_rows_device, sd.decode_kept_device, tengine.rescue_pairs,
+                pdev.pair_rows_device, pdev.pair_cands_device)
+
+    before = counters()
     jdialed = jeng._align_pairs_impl(*batch)
     dialed = teng._align_pairs_impl(*batch)
     np.testing.assert_array_equal(canonical_hits(dialed), canonical_hits(jdialed))
     got = teng._exact_rescue(dialed, *batch)
     want = jeng._exact_rescue(jdialed, *batch)
     np.testing.assert_array_equal(canonical_hits(got), canonical_hits(want))
-    rows, kept, rescued = (a - b for a, b in zip(
-        (sd.decode_rows_device, sd.decode_kept_device, tengine.rescue_pairs), before))
+    rows, kept, rescued, paired, cands = (a - b for a, b in zip(counters(), before))
     assert rescued >= int(junk.sum()) > 0
     if device_seeding:
-        assert rows > kept > 0
+        # every kept cluster of every round is paired on the device
+        assert rows > kept > 0 and paired == kept and cands > 0
     else:
-        assert rows == kept == 0
+        assert rows == kept == paired == cands == 0
     fresh = engine_from_reference(ref, fm, jp, CPU, device_seeding=device_seeding)
     np.testing.assert_array_equal(canonical_hits(fresh.align_pairs(*batch)), canonical_hits(got))
 
