@@ -119,11 +119,12 @@ exits non-zero and prints no result line):
                passes, ``build_fm_index`` (sa_interval 8, 8-mer table) with
                each stage's seconds and peak card memory, at most
                ``BUILD_BYTES_PER_CHAR`` a character; a lazy engine's first
-               commit (``DeviceFM.from_host`` and the text) split into host
-               packing and upload, its peak and the bytes it holds, then
-               one evict -> commit round as the rotation makes it each
-               batch (upload alone), and the rotation's cost a batch
-               derived for 125 such shards; 2,048 exact 100 bp read ends
+               commit (``DeviceFM.from_host`` and the text's packed
+               words) split into host packing and upload, its peak and
+               the bytes it holds, then one evict -> commit round as the
+               rotation makes it each batch (upload alone), and the
+               rotation's cost a batch derived for 125 such shards; 2,048
+               exact 100 bp read ends
                planted at known positions through
                ``device_seed_pipeline_loc`` (walk and locate launched, each
                read end's positions hold its own); ``locate`` against its
@@ -2864,8 +2865,7 @@ def _timed_passes(engine, batch, n_timed: int, smi: str, tag: str):
     orig = (seeding_dev.mmp_seed_device, seeding_dev.locate_device)
     seeding_dev.mmp_seed_device = split.wrap("walk", orig[0])
     seeding_dev.locate_device = split.wrap("locate", orig[1])
-    for name in ("_deep_dp_walk_call", "_device_align_rows",
-                 "_deep_dp_fused_call", "_device_align"):
+    for name in ("_deep_dp_walk_call", "_device_align_rows"):
         setattr(engine, name, split.wrap("dp", getattr(engine, name)))
     n_reads = 2 * len(batch[1])
     try:
@@ -3448,7 +3448,7 @@ def _commit_stages(split: Split):
     """Time a commit's parts into ``split`` while an engine commits: the
     host packing of the FM tables (``HostFM.pack``) and of the text's
     words (``pack_ref_words``), the tables' upload (``HostFM.upload``);
-    the rest of a commit is the text's and the words' upload."""
+    the rest of a commit is the words' upload."""
     from megapath_tpu_torch.align import engine as engine_mod
 
     host_fm = seeding_dev.HostFM
@@ -3464,23 +3464,22 @@ def _commit_stages(split: Split):
 
 def _commit(engine: AlignEngine) -> None:
     """What the rotation puts on the card for one shard and one batch: the
-    engine's commit and its packed text words (the walk-state DP's)."""
+    engine's commit (its FM tables and packed text words)."""
     engine.commit()
-    engine._ref_words()
     torch.cuda.synchronize()
 
 
 def engine_card_bytes(engine: AlignEngine) -> int:
-    """The bytes a committed engine holds on its card: the FM tables, the
-    text codes and the packed text words."""
-    return (engine.dfm.nbytes + engine._ref_dev.numel()
+    """The bytes a committed engine holds on its card: the FM tables and
+    the packed text words."""
+    return (engine.dfm.nbytes
             + engine._ref_words_dev.numel() * engine._ref_words_dev.element_size())
 
 
 def shard_commits(dev: torch.device, smi: str, codes: np.ndarray, fm) -> "seeding_dev.DeviceFM":
     """The default shard through a lazy engine's commits, as the rotation
     makes them: the first commit (``DeviceFM.from_host``'s packing and
-    upload, the text and its packed words) split into host packing and
+    upload, the text's packed words) split into host packing and
     upload beside its card peak, then one evict -> commit round, which
     uploads what the first packed and packs nothing. Prints both, the
     bytes on the card and kept on the host, and the rotation's cost a
@@ -3510,14 +3509,14 @@ def shard_commits(dev: torch.device, smi: str, codes: np.ndarray, fm) -> "seedin
     kept = (host.rows.nbytes + host.mark_rows.nbytes + host.sa_sampled.nbytes
             + engine._host_words.nbytes)
     pack_s = f["pack tables"] + f["pack words"]
-    print(f"[shard] first commit of the {n} bp shard (DeviceFM.from_host and the text): "
+    print(f"[shard] first commit of the {n} bp shard (DeviceFM.from_host and the text words): "
           f"{first_s:.3f} s = host packing {pack_s:.3f} s (tables {f['pack tables']:.3f}, "
           f"text words {f['pack words']:.3f}) + upload {first_s - pack_s:.3f} s (tables "
-          f"{f['upload tables']:.3f}, text and words {first_s - pack_s - f['upload tables']:.3f}"
+          f"{f['upload tables']:.3f}, text words {first_s - pack_s - f['upload tables']:.3f}"
           f"); card peak {peak / 2**30:.2f} GiB, {on_card} bytes held ({on_card / n:.3f} "
           f"a character); after evict {evicted} bytes [{smi}]")
     print(f"[shard] re-commit after evict, as the rotation makes it each batch: {again_s:.3f} s "
-          f"= tables {a['upload tables']:.3f} s + text and words "
+          f"= tables {a['upload tables']:.3f} s + text words "
           f"{again_s - a['upload tables']:.3f} s, all upload, nothing packed; the engine keeps "
           f"{kept} bytes ({kept / 2**30:.2f} GiB, {kept / n:.3f} a character) packed on the "
           f"host for it. Derived, not measured: {NT_DB_SHARDS} such shards rotate through one "
@@ -3591,8 +3590,9 @@ def phase_shard(dev: torch.device, smi: str, lat: dict) -> float:
     del fm, codes
     chg = 3 * PLANTED_LEN + 64
     zero_counts()
-    flat, pos, _ = seeding_dev.device_seed_pipeline_loc(
-        dfm, torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev),
+    flat, pos = seeding_dev.device_seed_pipeline_loc(
+        dfm, *seeding_dev.build_walkers(torch.from_numpy(reads).to(dev),
+                                        torch.from_numpy(lens).to(dev)),
         AlignParams().mmp, int(min(16, max(4, PLANTED_LEN // 16 + 2))), chg, chg)
     torch.cuda.synchronize()
     counts = read_counts()
@@ -4383,25 +4383,24 @@ def _sync_calls(fn):
 def _spmd_bytes(pipe: MegaPathPipeline) -> dict:
     """The bytes each shard holds on the card in spmd mode: the grid's
     placement on each of its devices (tables, packed words, sequence
-    offsets) and the rescue engine's text codes on its column's first
-    device."""
+    offsets). The rescue engine on its column's first device holds that
+    device's packed words, no copy of its own."""
     out = {}
     for (s, dev), placed in pipe._spmd["inputs"].placed.items():
         eng = pipe.nt_engines[s]
-        text = eng._ref_dev.numel() if str(eng.device) == dev else 0
+        if str(eng.device) == dev and eng._ref_words_dev is not placed.ref_words:
+            raise AssertionError(f"[spmd] shard {s}'s rescue engine holds a text of its own")
         out[s, dev] = dict(tables=placed.dfm.nbytes, words=placed.ref_words.numel() * 4,
-                           offsets=placed.seq_off.numel() * 8, text=text,
-                           chars=placed.n_text)
+                           offsets=placed.seq_off.numel() * 8, chars=placed.n_text)
     return out
 
 
 def _print_spmd_bytes(tag: str, pipe: MegaPathPipeline) -> None:
     for (s, dev), b in _spmd_bytes(pipe).items():
-        total = b["tables"] + b["words"] + b["offsets"] + b["text"]
+        total = b["tables"] + b["words"] + b["offsets"]
         print(f"[spmd] {tag}: shard {s} on {dev} holds {total:,} bytes = "
               f"{total / b['chars']:.3f} a character (tables {b['tables']:,}, packed words "
-              f"{b['words']:,}, offsets {b['offsets']:,}, the rescue engine's text "
-              f"{b['text']:,})")
+              f"{b['words']:,}, offsets {b['offsets']:,})")
 
 
 def _timed_median(fn, n: int = 3) -> tuple:

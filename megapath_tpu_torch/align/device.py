@@ -122,43 +122,6 @@ def align_with_starts(
     return sw_align_full_auto(reads, wins, read_lens, win_lens, params)
 
 
-def deep_dp_fused(
-    ref_codes: torch.Tensor,
-    left_reads: torch.Tensor,  # [C, L] forward codes of the left leg
-    left_lens: torch.Tensor,
-    left_starts: torch.Tensor,  # int32 window starts (pos - margin)
-    left_win_lens: torch.Tensor,
-    right_reads: torch.Tensor,  # [C, L] revcomp codes of the right leg
-    right_lens: torch.Tensor,
-    right_starts: torch.Tensor,
-    right_full_wl: torch.Tensor,  # readLen + 2*margin before clipping
-    width: int,
-    insert_high: int,
-    params: DPParams = DPParams(),
-) -> Tuple[DPFullResult, DPFullResult]:
-    """Both deep-DP legs with no host round trip between them.
-
-    The reference aligns the right end per left-passing candidate with
-    the window clipped to leftHit + insert_high
-    (DV-DPfunctions.cpp:2933-2959). The clip is computed here, on the
-    device, from the left leg's start cell; the right leg runs for every
-    candidate and the host gates the output by the left threshold, so the
-    kept hits equal the reference's two-phase flow.
-    """
-    left = align_with_starts(
-        ref_codes, left_reads, left_lens, left_starts, width, params,
-        left_win_lens,
-    )
-    hit_left = left_starts.to(torch.int64) + left.start_ref
-    bound = hit_left + insert_high - right_starts.to(torch.int64)
-    wl_r = torch.minimum(right_full_wl.to(torch.int64), bound).clamp(0, width)
-    right = align_with_starts(
-        ref_codes, right_reads, right_lens, right_starts, width, params,
-        wl_r.to(torch.int32),
-    )
-    return left, right
-
-
 def pack_ref_words(codes: np.ndarray) -> np.ndarray:
     """Host, once per shard: uint8 codes [n] -> uint32 words
     [(n+15)//16], char j at bits 2*(j%16) of word j//16."""
@@ -202,7 +165,7 @@ def deep_dp_fused_walk(
     ref_words: torch.Tensor,  # int32 packed shard text (uint32 bits)
     n_text: int,
     walkers: torch.Tensor,  # uint8 [2*nb, L]: [reads; revcomp] rows
-    lens_all: torch.Tensor,  # int32 [nb]
+    lens_all: torch.Tensor,  # int32 [>= nb]: read end i's length at i
     nb: int,
     left_idx: torch.Tensor,  # int32 [C] read rows of the left (+) legs
     left_starts: torch.Tensor,

@@ -8,10 +8,10 @@ engine's torch device. Seeding runs on the host (numpy MMP walk and SA
 locate, ``device_seeding=False``) or on the device (``seeding_dev``: the
 walk and the locate as CUDA kernels on a card, the decode and the
 insert-window pairing (``pairing_dev``) in torch ops where they ran,
-``device_seeding=True``);
-on the device path the DP gathers its candidate reads from the walk's
-resident walker matrix. The two paths follow the reference's two paths
-and give its hits on each.
+``device_seeding=True``). On both, the DP gathers its candidate reads
+from the pass's [reads; revcomp] walker matrix on the device and its
+windows from the shard's packed text. The two paths follow the
+reference's two paths and give its hits on each.
 
 The engine never picks its device: ``device`` is required, and a CUDA
 device with no CUDA present raises. A ``lazy_device`` engine holds
@@ -32,8 +32,6 @@ import torch
 
 from megapath_tpu_torch.align.device import (
     align_rows_walk,
-    align_with_starts,
-    deep_dp_fused,
     deep_dp_fused_walk,
     pack_ref_words,
 )
@@ -50,13 +48,14 @@ from megapath_tpu_torch.align.seeding_dev import (
     DeviceFM,
     FlatSeeds,
     HostFM,
+    build_walkers,
     decode_seeds_device,
     device_seed_pipeline_loc,
 )
 from megapath_tpu_torch.index.fm import FMIndex
-from megapath_tpu_torch.index.pack import COMPLEMENT, PackedReference
+from megapath_tpu_torch.index.pack import PackedReference
 from megapath_tpu_torch.ops import _build
-from megapath_tpu_torch.ops.dp import DPParams
+from megapath_tpu_torch.ops.dp import DPFullResult, DPParams
 from megapath_tpu_torch.utils.timing import span
 
 # the pairs ``_exact_rescue`` was given and those it re-ran through the
@@ -117,17 +116,6 @@ def _concat_sp(parts: List[SeedPositions]) -> SeedPositions:
     )
 
 
-def _revcomp_rows(reads: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """Per-row reverse complement within each row's valid length."""
-    n, L = reads.shape
-    j = np.arange(L)[None, :]
-    src = np.asarray(lens, np.int64)[:, None] - 1 - j
-    ok = src >= 0
-    src = np.clip(src, 0, L - 1)
-    rc = COMPLEMENT[np.take_along_axis(reads, src, axis=1)]
-    return np.where(ok, rc, 0).astype(np.uint8)
-
-
 def _bucket(n: int) -> int:
     """Round DP batch sizes up: powers of two to 4096, then a 4096 grain
     (the reference's compile-cache buckets; the kernel takes any size,
@@ -152,13 +140,12 @@ def _pad_rows(a: np.ndarray, nb: int, dtype=None) -> np.ndarray:
 
 
 class _BatchDev(NamedTuple):
-    """The device seeding walk's state that the DP of the same batch
-    reuses: row i of ``walkers`` is the forward read end i, row nb + i
-    its reverse complement."""
+    """Read ends on the device, as the walk takes them and the DP gathers
+    them: row i of ``walkers`` is the forward read end i, row nb + i its
+    reverse complement, and ``lens`` holds each row's length."""
 
-    batch: int  # the batch token of the align_pairs call that seeded
     walkers: torch.Tensor  # uint8 [2*nb, L]
-    lens: torch.Tensor  # int32 [nb]
+    lens: torch.Tensor  # int32 [2*nb]
     nb: int
 
 
@@ -191,14 +178,8 @@ class AlignEngine:
         self.params = params
         self.device = device
         self._device_seeding = device_seeding
-        self._ref_dev: Optional[torch.Tensor] = None
         self.dfm: Optional[DeviceFM] = None
-        self._ref_words_dev: Optional[torch.Tensor] = None  # packed text (lazy)
-        # the walk state of the batch being aligned, keyed by an explicit
-        # batch token (a counter per _align_pairs_impl call), never by
-        # the identity of a host array
-        self._batch_dev: Optional[_BatchDev] = None
-        self._batches = 0
+        self._ref_words_dev: Optional[torch.Tensor] = None  # packed text
         # reference-exact rescue (see _exact_rescue): pairs ending with a
         # zero-hit end re-run through the undialed walk; junk-heavy
         # streams flip to the direct exact walk
@@ -215,18 +196,22 @@ class AlignEngine:
 
     def commit(self, dfm: Optional[DeviceFM] = None,
                ref_words: Optional[torch.Tensor] = None) -> None:
-        """Put this shard's text, and on device seeding its FM tables,
-        on the engine's device, once. ``dfm`` and ``ref_words``, tables of
-        this shard already on the engine's device (the one-program grid's),
-        are held instead of a copy of the engine's own."""
+        """Put this shard's packed text, and on device seeding its FM
+        tables, on the engine's device, once. ``dfm`` and ``ref_words``,
+        tables of this shard already on the engine's device (the
+        one-program grid's), are held instead of a copy of the engine's
+        own."""
         if dfm is not None:
             self.dfm = dfm
         if ref_words is not None:
             self._ref_words_dev = ref_words
-        if self._ref_dev is None:
-            self._ref_dev = torch.from_numpy(
-                np.ascontiguousarray(self.ref.codes, dtype=np.uint8)
-            ).to(self.device)
+        if self._ref_words_dev is None:
+            words = self._host_words
+            if words is None:
+                words = pack_ref_words(self.ref.codes).view(np.int32)
+                if self.lazy_device:
+                    self._host_words = words
+            self._ref_words_dev = self._to_dev(words)
         if self._device_seeding and self.dfm is None:
             host = self._host_fm or HostFM.pack(self.fm)
             if self.lazy_device:
@@ -237,20 +222,20 @@ class AlignEngine:
         """Drop the shard's device copies (the host copies stay); the next
         commit() puts them back. The cross-batch state (``exact_rescue``,
         the direct exact walk) stays, as the reference's evict keeps it."""
-        self._ref_dev = None
         self.dfm = None
         self._ref_words_dev = None
-        self._batch_dev = None
 
     @property
     def committed(self) -> bool:
-        return self.dfm is not None or self._ref_dev is not None
+        return self._ref_words_dev is not None and (
+            self.dfm is not None or not self._device_seeding
+        )
 
     def _require_committed(self) -> None:
         """Commit a non-lazy engine that was evicted; a lazy engine that is
         not committed raises (only the rotation puts its shard on the
         device)."""
-        if self._ref_dev is not None and (self.dfm is not None or not self._device_seeding):
+        if self.committed:
             return
         if self.lazy_device:
             raise RuntimeError(
@@ -262,77 +247,66 @@ class AlignEngine:
     # ------------------------------------------------------------------
     def seed_positions(
         self, reads: np.ndarray, lens: np.ndarray, mmp=None,
-        batch: Optional[int] = None,
     ) -> SeedPositions:
         """MMP walk + locate + decode, on the device when the engine
         seeds there (only the kept clusters come back), else on the host.
         ``mmp`` overrides the seeding parameters for one call (deep-DP
         rounds past the first re-seed with their own MmpParams,
-        alignment.cpp:91-137). ``batch`` is the token of a call that seeds
-        a whole batch: its walker matrix then stays on the device for that
-        batch's DP."""
-        return self._seed(reads, lens, mmp, batch)[0]
+        alignment.cpp:91-137)."""
+        return self._seed(reads, lens, mmp)[0]
 
     def _seed(
         self, reads: np.ndarray, lens: np.ndarray, mmp=None,
-        batch: Optional[int] = None,
+        walk: Optional[_BatchDev] = None,
     ) -> Tuple[SeedPositions, Optional[_SeedsDev]]:
         """``seed_positions``, and on device seeding the kept clusters
-        where the decode left them (None on host seeding)."""
+        where the decode left them (None on host seeding). ``walk``, the
+        reads' walker matrix when it is already on the device, spares
+        its upload and build."""
         mmp = mmp or self.params.mmp
         if self._device_seeding:
             self._require_committed()
-            flat, pos, lens_d, nb = self._device_seeds_pos(reads, lens, mmp, batch)
-            sp, kept = decode_seeds_device(flat, pos, lens_d, len(reads), nb, mmp)
+            if walk is None:
+                walk = self._walkers(reads, lens)
+            flat, pos = self._device_seeds_pos(walk, mmp)
+            lens_d = walk.lens[: walk.nb]
+            sp, kept = decode_seeds_device(flat, pos, lens_d, len(reads), walk.nb, mmp)
             return sp, _SeedsDev(kept, lens_d)
         walkers, wlens = make_walkers_fast(reads, lens)
         seeds = mmp_seed(walkers, wlens, self.fm, mmp)
         return decode_seeds(seeds, self.fm, lens, len(reads), mmp), None
 
+    def _walkers(self, reads: np.ndarray, lens: np.ndarray) -> _BatchDev:
+        """Upload the read ends, padded as the reference pads its walkers
+        (a 512 bucket for small batches, exact-rescue subsets, a 4096
+        grain above), and build their [reads; revcomp] matrix there."""
+        N = len(reads)
+        nb = 512 if N <= 512 else _round_up(N, 4096)
+        walkers, wlens = build_walkers(
+            self._to_dev(_pad_rows(reads, nb)),
+            self._to_dev(_pad_rows(lens, nb, np.int32)),
+        )
+        return _BatchDev(walkers, wlens, nb)
+
     def _device_seeds_pos(
-        self, reads: np.ndarray, lens: np.ndarray, mmp, batch: Optional[int]
-    ) -> Tuple[FlatSeeds, torch.Tensor, torch.Tensor, int]:
-        """The device walk over [reads; revcomp] and the locate of every
+        self, walk: _BatchDev, mmp
+    ) -> Tuple[FlatSeeds, torch.Tensor]:
+        """The device walk over ``walk``'s rows and the locate of every
         seed's SA rows (``engine.py:322-504, 636-681``, unsegmented and
         unstaged). Returns, on the device, the seeds in the flat order the
-        reference pulls them in (walker ids of the padded batch), the text
-        position of every expanded SA row, the padded lengths and the
-        padded read count."""
-        N, L = reads.shape
-        # the reference's walker padding: a 512 bucket for small batches
-        # (exact-rescue subsets), a 4096 grain above
-        Nb = 512 if N <= 512 else _round_up(N, 4096)
+        reference pulls them in (walker ids of the padded batch) and the
+        text position of every expanded SA row."""
+        L = walk.walkers.shape[1]
         # each emitted seed advances the cursor >= seed_min_length - 1
         # chars, so L/16+2 slots bound the per-walker seed count
         max_seeds = int(min(16, max(4, L // 16 + 2)))
         # the charged walk bound; one thread per read end has no stall
         # iterations, so the iteration bound is the same number
         charge_limit = 3 * L + 64
-        lens_d = self._to_dev(_pad_rows(lens, Nb, np.int32))
-        flat, pos, walkers = device_seed_pipeline_loc(
-            self.dfm, self._to_dev(_pad_rows(reads, Nb)), lens_d, mmp,
+        return device_seed_pipeline_loc(
+            self.dfm, walk.walkers, walk.lens, mmp,
             max_seeds, charge_limit, charge_limit,
         )
-        self._batch_dev = (
-            _BatchDev(batch, walkers, lens_d, Nb) if batch is not None else None
-        )
-        return flat, pos, lens_d, Nb
-
-    def _walk_state(self, batch: int) -> Optional[_BatchDev]:
-        """The resident walk state if it belongs to ``batch``."""
-        bd = self._batch_dev
-        return bd if bd is not None and bd.batch == batch else None
-
-    def _ref_words(self) -> torch.Tensor:
-        if self._ref_words_dev is None:
-            self._require_committed()
-            words = self._host_words
-            if words is None:
-                words = pack_ref_words(self.ref.codes).view(np.int32)
-                if self.lazy_device:
-                    self._host_words = words
-            self._ref_words_dev = self._to_dev(words)
-        return self._ref_words_dev
 
     def _dp_params(self) -> DPParams:
         p = self.params
@@ -341,64 +315,18 @@ class AlignEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _device_align(
-        self,
-        reads: np.ndarray,
-        lens: np.ndarray,
-        win_starts: np.ndarray,
-        width: int,
-        win_lens: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Gather + forward DP + backward DP on the device; returns numpy
-        (score, start_ref, end_ref) in one pull.
+    def _upload_rows(self, *cols: np.ndarray) -> List[torch.Tensor]:
+        """int32 columns of one DP call, zero-padded to its bucket, on the
+        device."""
+        nb = _bucket(len(cols[0]))
+        return [self._to_dev(_pad_rows(c, nb, np.int32)) for c in cols]
 
-        ``win_lens`` bounds each row's usable window (soap4 clips the
-        candidate's DNA window length, DV-DPfunctions.cpp:2876-2881,
-        2954-2959); defaults to the full ``width``.
-        """
-        self._require_committed()
-        n = reads.shape[0]
-        if win_lens is None:
-            win_lens = np.full(n, width, dtype=np.int32)
-        nb = _bucket(n)
-        out = align_with_starts(
-            self._ref_dev,
-            self._to_dev(_pad_rows(reads, nb)),
-            self._to_dev(_pad_rows(lens, nb, np.int32)),
-            self._to_dev(_pad_rows(win_starts, nb, np.int32)),
-            width,
-            params=self._dp_params(),
-            win_lens=self._to_dev(
-                np.clip(_pad_rows(win_lens, nb, np.int32), 0, width)
-            ),
-        )
-        res = torch.stack((out.score, out.start_ref, out.end_ref)).cpu().numpy()
-        return tuple(r[:n].astype(np.int64) for r in res)
-
-    def _deep_dp_fused_call(
-        self, l_reads, l_lens, l_starts, l_wl,
-        r_reads, r_lens, r_starts, r_full_wl, width,
-    ):
-        """Bucket-pad, run deep_dp_fused, pull the six results at once."""
-        self._require_committed()
-        n = l_reads.shape[0]
-        nb = _bucket(n)
-        i32 = np.int32
-        left, right = deep_dp_fused(
-            self._ref_dev,
-            self._to_dev(_pad_rows(l_reads, nb)),
-            self._to_dev(_pad_rows(l_lens, nb, i32)),
-            self._to_dev(_pad_rows(l_starts, nb, i32)),
-            self._to_dev(np.clip(_pad_rows(l_wl, nb, i32), 0, width)),
-            self._to_dev(_pad_rows(r_reads, nb)),
-            self._to_dev(_pad_rows(r_lens, nb, i32)),
-            self._to_dev(_pad_rows(r_starts, nb, i32)),
-            self._to_dev(np.clip(_pad_rows(r_full_wl, nb, i32), 0, width)),
-            width, int(self.params.insert_high), params=self._dp_params(),
-        )
+    @staticmethod
+    def _pull(n: int, *outs: DPFullResult) -> Tuple[np.ndarray, ...]:
+        """(score, start_ref, end_ref) of each result's first ``n`` rows,
+        as int64, in one read-back."""
         res = torch.stack(
-            (left.score, left.start_ref, left.end_ref,
-             right.score, right.start_ref, right.end_ref)
+            [f for o in outs for f in (o.score, o.start_ref, o.end_ref)]
         ).cpu().numpy()
         return tuple(r[:n].astype(np.int64) for r in res)
 
@@ -407,46 +335,32 @@ class AlignEngine:
         r_full_wl, width,
     ):
         """Bucket-pad the index and start arrays, run deep_dp_fused_walk
-        against the resident walker matrix, pull the six results at once."""
-        n = l_idx.shape[0]
-        nb = _bucket(n)
-        i32 = np.int32
+        against the pass's walker matrix, pull the six results at once."""
         left, right = deep_dp_fused_walk(
-            self._ref_words(), len(self.ref.codes), bd.walkers, bd.lens, bd.nb,
-            self._to_dev(_pad_rows(l_idx, nb, i32)),
-            self._to_dev(_pad_rows(l_starts, nb, i32)),
-            self._to_dev(np.clip(_pad_rows(l_wl, nb, i32), 0, width)),
-            self._to_dev(_pad_rows(r_idx, nb, i32)),
-            self._to_dev(_pad_rows(r_starts, nb, i32)),
-            self._to_dev(np.clip(_pad_rows(r_full_wl, nb, i32), 0, width)),
+            self._ref_words_dev, len(self.ref.codes), bd.walkers, bd.lens, bd.nb,
+            *self._upload_rows(
+                l_idx, l_starts, np.clip(l_wl, 0, width),
+                r_idx, r_starts, np.clip(r_full_wl, 0, width),
+            ),
             width, int(self.params.insert_high), params=self._dp_params(),
         )
-        res = torch.stack(
-            (left.score, left.start_ref, left.end_ref,
-             right.score, right.start_ref, right.end_ref)
-        ).cpu().numpy()
-        return tuple(r[:n].astype(np.int64) for r in res)
+        return self._pull(len(l_idx), left, right)
 
     def _device_align_rows(
         self, bd: _BatchDev, rows: np.ndarray, lens: np.ndarray,
         win_starts: np.ndarray, width: int,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """_device_align against the resident walker matrix and the
-        packed text (single-end and mate-rescue legs); ``rows`` are walker
-        rows (read index + strand * nb)."""
-        n = rows.shape[0]
-        nb = _bucket(n)
-        i32 = np.int32
+        """Gather + forward DP + backward DP against the pass's walker
+        matrix and the packed text (single-end and mate-rescue legs);
+        ``rows`` are walker rows (read index + strand * nb). Returns numpy
+        (score, start_ref, end_ref) in one pull."""
+        rows_d, lens_d, starts_d = self._upload_rows(rows, lens, win_starts)
         out = align_rows_walk(
-            self._ref_words(), len(self.ref.codes), bd.walkers,
-            self._to_dev(_pad_rows(rows, nb, i32)),
-            self._to_dev(_pad_rows(lens, nb, i32)),
-            self._to_dev(_pad_rows(win_starts, nb, i32)),
-            self._to_dev(np.full(nb, width, i32)), width,
+            self._ref_words_dev, len(self.ref.codes), bd.walkers,
+            rows_d, lens_d, starts_d, torch.full_like(rows_d, width), width,
             params=self._dp_params(),
         )
-        res = torch.stack((out.score, out.start_ref, out.end_ref)).cpu().numpy()
-        return tuple(r[:n].astype(np.int64) for r in res)
+        return self._pull(len(rows), out)
 
     # ------------------------------------------------------------------
     def align_pairs(
@@ -549,9 +463,7 @@ class AlignEngine:
     ) -> BatchHits:
         params = self.params
         n = len(reads1)
-        self._batches += 1
-        batch = self._batches
-        self._batch_dev = None
+        self._require_committed()
         # the spans align.pass.* name the parts of this pass; under the
         # exact rescue they sit inside its align.rescue
         with span("align.pass.seed"):
@@ -560,6 +472,9 @@ class AlignEngine:
             allr[:n, : reads1.shape[1]] = reads1
             allr[n:, : reads2.shape[1]] = reads2
             all_lens = np.concatenate([lens1, lens2]).astype(np.int32)
+            # the pass's read ends on the device: the first round walks
+            # them, and every round's DP gathers its reads from them
+            bd = self._walkers(allr, all_lens)
 
         # deep-DP rounds (alignment.cpp:91-137): round r re-seeds only
         # the still-unaligned pairs with that round's MmpParams. Seeds
@@ -575,13 +490,10 @@ class AlignEngine:
             t = len(todo)
             with span("align.pass.seed"):
                 if t == n:
-                    sub_reads, sub_lens = allr, all_lens
-                    # the whole batch: its walker matrix serves the DP
-                    sp, sdev = self._seed(sub_reads, sub_lens, mmp, batch=batch)
+                    sp, sdev = self._seed(allr, all_lens, mmp, bd)
                 else:
                     sel = np.concatenate([todo, todo + n])
-                    sub_reads, sub_lens = allr[sel], all_lens[sel]
-                    sp, sdev = self._seed(sub_reads, sub_lens, mmp)
+                    sp, sdev = self._seed(allr[sel], all_lens[sel], mmp)
                 m1 = sp.read < t
                 sp1 = SeedPositions(
                     todo[sp.read[m1]].astype(np.int32),
@@ -605,9 +517,7 @@ class AlignEngine:
                         None if t == n else self._to_dev(todo),
                     )
             with span("align.pass.deep_dp"):
-                paired_hits, aligned_pairs = self._deep_dp(
-                    cands, allr, all_lens, n, batch
-                )
+                paired_hits, aligned_pairs = self._deep_dp(cands, bd, all_lens, n)
                 hits_parts.append(paired_hits)
                 todo = np.setdiff1d(todo, aligned_pairs)
 
@@ -617,7 +527,7 @@ class AlignEngine:
                 hits_parts.append(
                     self._single_and_rescue(
                         todo, _concat_sp(sp1_parts), _concat_sp(sp2_parts),
-                        allr, all_lens, n, batch,
+                        bd, all_lens, n,
                     )
                 )
         with span("align.pass.splice"):
@@ -627,10 +537,9 @@ class AlignEngine:
     def _deep_dp(
         self,
         cands: Candidates,
-        allr: np.ndarray,
+        bd: _BatchDev,
         all_lens: np.ndarray,
         n: int,
-        batch: int,
     ) -> Tuple[BatchHits, np.ndarray]:
         params = self.params
         C = len(cands)
@@ -655,21 +564,12 @@ class AlignEngine:
         # two-phase flow.
         starts_l = cands.left_pos - margin_l
         starts_r_all = cands.right_pos - margin_r
-        bd = self._walk_state(batch)
-        if bd is not None:
-            # the candidate reads are rows of the walk's resident
-            # [reads; revcomp] matrix; the host ships index arrays only
-            s1, st_l, e_l, s2a, st_ra, e_ra = self._deep_dp_walk_call(
-                bd, left_read_idx, starts_l, (lL + 2 * margin_l),
-                right_read_idx, starts_r_all, (lR + 2 * margin_r), Wwin,
-            )
-        else:
-            s1, st_l, e_l, s2a, st_ra, e_ra = self._deep_dp_fused_call(
-                allr[left_read_idx], lL, starts_l,
-                (lL + 2 * margin_l),
-                _revcomp_rows(allr[right_read_idx], lR), lR, starts_r_all,
-                (lR + 2 * margin_r), Wwin,
-            )
+        # the candidate reads are rows of the pass's [reads; revcomp]
+        # matrix on the device; the host ships index arrays only
+        s1, st_l, e_l, s2a, st_ra, e_ra = self._deep_dp_walk_call(
+            bd, left_read_idx, starts_l, (lL + 2 * margin_l),
+            right_read_idx, starts_r_all, (lR + 2 * margin_r), Wwin,
+        )
         thr_l = np.maximum((params.cutoff_ratio * lL).astype(np.int64),
                            params.cutoff_lower_bound)
         kidx0 = np.flatnonzero(s1 >= thr_l)
@@ -737,10 +637,9 @@ class AlignEngine:
         todo: np.ndarray,
         sp1: SeedPositions,
         sp2: SeedPositions,
-        allr: np.ndarray,
+        bd: _BatchDev,
         all_lens: np.ndarray,
         n: int,
-        batch: int,
     ) -> BatchHits:
         """Single-end DP on leftover reads' seed positions, then mate
         rescue within the insert window (alignment.cpp:141-296 flow)."""
@@ -785,22 +684,11 @@ class AlignEngine:
             margin = np.where(rl > 100, 30, 25)
             Wwin = _round_up(int(rl.max(initial=1)) + 62, 64)
             wstart = pos_b - margin
-            bd = self._walk_state(batch)
-            if bd is not None:
-                # the oriented read is a walker row (fwd idx, rc nb + idx)
-                score, st_ref, e_ref = self._device_align_rows(
-                    bd, reads_idx + strand_b.astype(np.int64) * bd.nb, rl,
-                    wstart, Wwin,
-                )
-            else:
-                # + strand: forward read; - strand: revcomp
-                fwd = allr[reads_idx]
-                seqs = np.where(
-                    (strand_b == 0)[:, None], fwd, _revcomp_rows(fwd, rl)
-                ).astype(np.uint8)
-                score, st_ref, e_ref = self._device_align(
-                    seqs, rl.astype(np.int32), wstart, Wwin
-                )
+            # the oriented read is a walker row (fwd idx, rc nb + idx)
+            score, st_ref, e_ref = self._device_align_rows(
+                bd, reads_idx + strand_b.astype(np.int64) * bd.nb, rl,
+                wstart, Wwin,
+            )
             thr = np.maximum((params.cutoff_ratio * rl).astype(np.int64),
                              params.cutoff_lower_bound)
             kidx = np.flatnonzero(score >= thr)
@@ -826,7 +714,7 @@ class AlignEngine:
 
         # mate rescue: DP the other end inside the insert window
         mate_hits, rescued_rows, rescued_sums = self._mate_rescue(
-            singles, allr, all_lens, n, batch
+            singles, bd, all_lens, n
         )
 
         # anchor records; rescued anchors get the summed pair score
@@ -858,10 +746,9 @@ class AlignEngine:
     def _mate_rescue(
         self,
         anchors: np.ndarray,  # int64 [A, 7] rows from _single_and_rescue
-        allr: np.ndarray,
+        bd: _BatchDev,
         all_lens: np.ndarray,
         n: int,
-        batch: int,
     ):
         """DP the mate of each passing single-end hit within the insert
         window (DV-SemiDP.cpp semantics: anchor one end, scan the other).
@@ -883,19 +770,9 @@ class AlignEngine:
             strand == 0, g_start - margin, g_stop - params.insert_high - margin
         )
         mate_strand = 1 - strand
-        bd = self._walk_state(batch)
-        if bd is not None:
-            score, st_ref, e_ref = self._device_align_rows(
-                bd, mate_idx + mate_strand * bd.nb, ml, win_start, W
-            )
-        else:
-            fwd = allr[mate_idx]
-            seqs = np.where(
-                (mate_strand == 0)[:, None], fwd, _revcomp_rows(fwd, ml)
-            ).astype(np.uint8)
-            score, st_ref, e_ref = self._device_align(
-                seqs, ml.astype(np.int32), win_start, W
-            )
+        score, st_ref, e_ref = self._device_align_rows(
+            bd, mate_idx + mate_strand * bd.nb, ml, win_start, W
+        )
         thr = np.maximum((params.cutoff_ratio * ml).astype(np.int64),
                          params.cutoff_lower_bound)
         kidx = np.flatnonzero(score >= thr)

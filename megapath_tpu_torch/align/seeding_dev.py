@@ -597,19 +597,19 @@ def expand_rows(sa_lo: torch.Tensor, sa_count: torch.Tensor) -> torch.Tensor:
 
 def device_seed_pipeline_loc(
     dfm: DeviceFM,
-    reads: torch.Tensor,  # uint8 [N, L] forward reads (both ends stacked)
-    lens: torch.Tensor,  # int32 [N]
+    walkers: torch.Tensor,  # uint8 [2N, L] build_walkers' [reads; revcomp]
+    wlens: torch.Tensor,  # int32 [2N]
     params: MmpParams,
     max_seeds: int,
     max_steps: int,
     charge_limit: Optional[int] = None,
-) -> Tuple[FlatSeeds, torch.Tensor, torch.Tensor]:
-    """The whole seeding leg on the device (``seeding_jax.py:982-1027``):
-    build [reads; revcomp] walkers, walk, flatten, expand every seed's SA
-    rows and locate them. Returns (flat seeds, text positions int32 per
-    expanded row, the walker matrix), all on the device; the walker
-    matrix stays there for the DP's candidate gather."""
-    walkers, wlens = build_walkers(reads, lens)
+) -> Tuple[FlatSeeds, torch.Tensor]:
+    """The whole seeding leg on the device (``seeding_jax.py:982-1027``)
+    over a walker matrix that ``build_walkers`` made: walk, flatten,
+    expand every seed's SA rows and locate them. Returns (flat seeds,
+    text positions int32 per expanded row), on the device; the walker
+    matrix is the caller's, which keeps it for the DP's candidate
+    gather."""
     seeds = mmp_seed_device(
         dfm, walkers, wlens, params, max_seeds, max_steps, charge_limit
     )
@@ -619,7 +619,7 @@ def device_seed_pipeline_loc(
         locate_device(dfm, rows) if len(rows)
         else torch.zeros(0, dtype=torch.int32, device=rows.device)
     )
-    return flat, pos, walkers
+    return flat, pos
 
 
 def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:

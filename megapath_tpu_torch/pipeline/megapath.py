@@ -231,17 +231,15 @@ class MegaPathPipeline:
         if self.cfg.spmd:
             self._init_spmd(nt_shards, devs, nt_params)
             # the engines serve the exact rescue alone, each on its column's
-            # first device: there they hold the shard's text and, on device
-            # seeding, the grid's tables of that device (no second copy)
+            # first device: there they hold the grid's packed text and, on
+            # device seeding, its tables of that device (no second copy)
             self.nt_engines = []
             for i, (ref, fm) in enumerate(nt_shards):
                 dev0 = self._spmd["mesh"].devices[0][i]
                 placed = self._spmd["inputs"].placed[(i, str(dev0))]
                 eng = self._engine(ref, fm, nt_params, dev0, lazy_device=True)
-                if self.cfg.device_seeding:
-                    eng.commit(dfm=placed.dfm, ref_words=placed.ref_words)
-                else:
-                    eng.commit()
+                eng.commit(dfm=placed.dfm if self.cfg.device_seeding else None,
+                           ref_words=placed.ref_words)
                 self.nt_engines.append(eng)
         else:
             self.nt_engines = [

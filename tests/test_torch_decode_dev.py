@@ -145,8 +145,9 @@ def walk(dfm, reads: np.ndarray, lens: np.ndarray, mmp: MmpParams, device):
     chg = 3 * L + 64
     max_seeds = int(min(16, max(4, L // 16 + 2)))
     lens_d = torch.from_numpy(pl).to(device)
-    flat, pos, _ = sd.device_seed_pipeline_loc(
-        dfm, torch.from_numpy(pr).to(device), lens_d, mmp, max_seeds, chg, chg)
+    flat, pos = sd.device_seed_pipeline_loc(
+        dfm, *sd.build_walkers(torch.from_numpy(pr).to(device), lens_d), mmp, max_seeds, chg,
+        chg)
     return flat, pos, lens_d, nb
 
 

@@ -66,44 +66,6 @@ def test_align_with_starts_matches_jax(seed, C, L, W):
         )
 
 
-@pytest.mark.parametrize("seed", [3, 4])
-def test_deep_dp_fused_right_leg_clip(seed):
-    """The right leg's window is clipped to left hit + insert_high on the
-    device; a small insert_high makes the clip bite on most rows."""
-    C, L, W = 24, 60, 128
-    rng, text, l_reads, l_lens, l_starts, _ = _world(seed, C, L, W)
-    r_off = rng.integers(20, 140, C)
-    r_starts = (l_starts + r_off).astype(np.int32)
-    r_reads = np.zeros_like(l_reads)
-    r_lens = l_lens.copy()
-    for c in range(C):
-        idx = np.clip(r_starts[c] + 25 + np.arange(r_lens[c]), 0, len(text) - 1)
-        r_reads[c, : r_lens[c]] = text[idx]
-    l_wl = np.minimum(l_lens + 50, W).astype(np.int32)
-    r_full = (r_lens + 50).astype(np.int32)
-    insert_high = 90
-    jl, jr = jdev.deep_dp_fused(
-        text, l_reads, l_lens, l_starts, l_wl, r_reads, r_lens, r_starts,
-        r_full, W, insert_high, params=JDPParams(),
-    )
-    t = torch.from_numpy
-    tl, tr = tdev.deep_dp_fused(
-        t(text), t(l_reads), t(l_lens), t(l_starts), t(l_wl), t(r_reads),
-        t(r_lens), t(r_starts), t(r_full), W, insert_high,
-    )
-    for got, want in ((tl, jl), (tr, jr)):
-        for f in FIELDS:
-            np.testing.assert_array_equal(
-                getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f
-            )
-    # the clip changed some right-leg results against an unclipped run
-    free = tdev.align_with_starts(
-        t(text), t(r_reads), t(r_lens), t(r_starts), W,
-        win_lens=t(np.clip(r_full, 0, W)),
-    )
-    assert (free.score != tr.score).any()
-
-
 def _assert_fields(got, want, fields):
     for f in fields:
         np.testing.assert_array_equal(
@@ -169,9 +131,13 @@ def _walk_world(seed, n, L, W):
     return rng, text, jdev.pack_ref_words(text), np.array(walkers), plens, starts, nb
 
 
-def test_deep_dp_fused_walk_matches_jax():
+@pytest.mark.parametrize("seed", [9, 3, 4])
+def test_deep_dp_fused_walk_matches_jax(seed):
+    """Both legs against the JAX program; the right leg's window is
+    clipped to left hit + insert_high on the device, and a small
+    insert_high makes the clip bite."""
     n, L, W = 24, 60, 128
-    rng, text, words, walkers, plens, starts, nb = _walk_world(9, n, L, W)
+    rng, text, words, walkers, plens, starts, nb = _walk_world(seed, n, L, W)
     C = 20
     l_idx = rng.integers(0, n, C).astype(np.int32)
     r_idx = rng.integers(0, n, C).astype(np.int32)
@@ -191,6 +157,12 @@ def test_deep_dp_fused_walk_matches_jax():
     for got, want in ((tl, jl), (tr, jr)):
         _assert_fields(got, want, FIELDS)
     assert (tr.score > 0).any() and (tl.score > 0).any()
+    # the clip changed some right-leg results against an unclipped run
+    free = tdev.align_rows_walk(
+        t(words.view(np.int32)), len(text), t(walkers), t(r_idx + nb),
+        t(plens[r_idx]), t(r_starts), t(np.clip(r_full, 0, W)), W,
+    )
+    assert (free.score != tr.score).any()
 
 
 def test_align_rows_walk_matches_jax():

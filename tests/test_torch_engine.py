@@ -63,11 +63,11 @@ def test_batch_hits_equal_jax_engine(align_world):
     jp = jparams.AlignParams()
     want = JAlignEngine(ref, fm, jp, device_seeding=False).align_pairs(*batch)
     port = engine_from_reference(ref, fm, jp, CPU)
-    assert port._ref_dev.dtype == torch.uint8 and port._ref_dev.device == CPU
+    assert port._ref_words_dev.dtype == torch.int32 and port._ref_words_dev.device == CPU
     port.evict()
-    assert port._ref_dev is None
+    assert port._ref_words_dev is None
     got = port.align_pairs(*batch)  # puts the shard back on its device
-    assert port._ref_dev is not None
+    assert port._ref_words_dev is not None
     assert len(got) == len(want) > 0
     np.testing.assert_array_equal(canonical_hits(got), canonical_hits(want))
     for f in dataclasses.fields(got):

@@ -68,8 +68,8 @@ def test_batch_hits_equal_jax_device_seeding(worlds, name):
     np.testing.assert_array_equal(canonical_hits(got), canonical_hits(want))
     for f in ("read", "end", "seq", "score", "start", "strand", "paired"):
         assert getattr(got, f).dtype == getattr(want, f).dtype, f
-    # the DP of the batch went through the walk's resident walker matrix
-    assert port._batch_dev is not None and port._ref_words_dev is not None
+    # the DP of the batch read the packed text; no walk state outlives it
+    assert port._ref_words_dev is not None and not _batch_state(port)
 
 
 def test_soap4_golden_parity_device_seeding():
@@ -183,22 +183,27 @@ def test_exact_rescue_decodes_where_the_engine_seeds(worlds, device_seeding):
     np.testing.assert_array_equal(canonical_hits(fresh.align_pairs(*batch)), canonical_hits(got))
 
 
+def _batch_state(eng) -> list:
+    """The engine's attributes that hold a batch's walker matrix."""
+    return [k for k, v in vars(eng).items() if isinstance(v, tengine._BatchDev)]
+
+
 def test_device_tables_follow_commit_and_evict(worlds):
     ref, fm, batch = worlds["align"]
     eng = engine_from_reference(ref, fm, jparams.AlignParams(), CPU, device_seeding=True)
     first = canonical_hits(eng.align_pairs(*batch))
-    token = eng._batch_dev.batch
+    # the walker matrix is an argument of the pass: none outlives it, so
+    # a new batch can never find an older batch's
+    assert not _batch_state(eng)
     eng.evict()
-    assert eng.dfm is None and eng._batch_dev is None and eng._ref_words_dev is None
-    # the walk state is keyed by the batch token: a new batch never
-    # finds an older batch's walker matrix
+    assert eng.dfm is None and eng._ref_words_dev is None and not eng.committed
     again = canonical_hits(eng.align_pairs(*batch))
-    assert eng.dfm is not None and eng._batch_dev.batch > token
-    assert eng._walk_state(token) is None
+    assert eng.dfm is not None and eng._ref_words_dev is not None
+    assert not _batch_state(eng)
     np.testing.assert_array_equal(again, first)
     host = engine_from_reference(ref, fm, jparams.AlignParams(), CPU)
     assert host.dfm is None and host.align_pairs(*batch) is not None
-    assert host._batch_dev is None
+    assert not _batch_state(host)
 
 
 @pytest.mark.parametrize("device_seeding", [True, False])
@@ -217,14 +222,13 @@ def test_250bp_mate_rescue_equals_jax(device_seeding):
     want = JAlignEngine(ref, fm, jp, device_seeding=device_seeding).align_pairs(*batch)
     port = engine_from_reference(ref, fm, jp, CPU, device_seeding=device_seeding)
     widths = []
-    for name in ("_device_align_rows", "_device_align"):
-        inner = getattr(port, name)
+    inner = port._device_align_rows
 
-        def record(*a, _inner=inner):
-            widths.append(a[-1])
-            return _inner(*a)
+    def record(*a):
+        widths.append(a[-1])
+        return inner(*a)
 
-        setattr(port, name, record)
+    port._device_align_rows = record
     got = port.align_pairs(*batch)
     np.testing.assert_array_equal(canonical_hits(got), canonical_hits(want))
     assert 1152 in widths

@@ -318,7 +318,7 @@ def test_recommit_uploads_the_tables_the_first_commit_packed(world4, monkeypatch
     batch = _batch(world4)
     eng.align_pairs(*batch)
     first = {f: getattr(eng.dfm, f).clone() for f in fields}
-    words = eng._ref_words().clone()
+    words = eng._ref_words_dev.clone()
 
     def no_pack(*a, **k):
         raise AssertionError("a re-commit packed the tables again")
@@ -331,7 +331,7 @@ def test_recommit_uploads_the_tables_the_first_commit_packed(world4, monkeypatch
         for f in fields:
             assert torch.equal(getattr(eng.dfm, f), first[f]), f
             assert torch.equal(getattr(eng.dfm, f), getattr(want, f)), f
-        assert torch.equal(eng._ref_words(), words)
+        assert torch.equal(eng._ref_words_dev, words)
         eng.align_pairs(*batch)
 
 

@@ -197,9 +197,9 @@ def test_pipeline_matches_device_seed_pipeline_loc(world, dial):
     )
     n_valid, *flat_j, pos_j, tot = (np.asarray(a) for a in out[:8])
     assert not bool(out[8]) and not bool(out[9])
-    flat, pos, walkers = sd.device_seed_pipeline_loc(
-        dfm, torch.from_numpy(reads), torch.from_numpy(lens),
-        align_params_from_reference(jp), 8, chg, chg,
+    walkers, wlens = sd.build_walkers(torch.from_numpy(reads), torch.from_numpy(lens))
+    flat, pos = sd.device_seed_pipeline_loc(
+        dfm, walkers, wlens, align_params_from_reference(jp), 8, chg, chg,
     )
     assert len(flat.walker) == int(n_valid) > 0
     for g, w in zip(flat, flat_j):
@@ -230,7 +230,7 @@ def test_cpu_path_launches_nothing(world):
     before = (seed_cuda.walk_launches, seed_cuda.locate_launches)
     reads, lens = _reads(codes, np.random.default_rng(4), 4, 40)
     sd.device_seed_pipeline_loc(
-        dfm, torch.from_numpy(reads), torch.from_numpy(lens),
+        dfm, *sd.build_walkers(torch.from_numpy(reads), torch.from_numpy(lens)),
         align_params_from_reference(PARAMS), 4, 184, 184,
     )
     assert (seed_cuda.walk_launches, seed_cuda.locate_launches) == before

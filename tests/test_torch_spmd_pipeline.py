@@ -116,20 +116,23 @@ def test_cascade_payload_equals_the_jax_backend(cascade_runs):
 
 
 def test_no_pool_and_engines_hold_only_their_text(cascade_runs):
-    """On host seeding the rescue engines hold their text alone."""
+    """On host seeding the rescue engines hold the grid's packed text of
+    their device and no copy of their own."""
     pipe, _, _, _ = cascade_runs
     assert pipe._pool is None and not pipe._wave_shards
-    for eng in pipe.nt_engines:
-        assert eng._ref_dev is not None and eng.dfm is None and eng._ref_words_dev is None
+    for s, eng in enumerate(pipe.nt_engines):
+        placed = pipe._spmd["inputs"].placed[(s, str(eng.device))]
+        assert eng._ref_words_dev is placed.ref_words and eng.dfm is None
+        assert eng._host_words is None
     assert len(pipe._spmd["inputs"].placed) == 2
 
 
 @pytest.mark.parametrize("device_seeding", [False, True])
 def test_junk_batch_gives_the_host_paths_report(cascade_shards, device_seeding):
     """test_spmd_full's 24 random pairs: every species at 0, and the report
-    of the host path, whichever level serves the batch. On device seeding
-    the rescue engines (every pair goes through the exact rescue) hold the
-    grid's tables of their device, not a copy."""
+    of the host path, whichever level serves the batch. The rescue engines
+    (every pair goes through the exact rescue) hold the grid's packed text
+    of their device and, on device seeding, its tables, not a copy."""
     rng = np.random.default_rng(44)
     decode = np.frombuffer(b"ACGT", dtype=np.uint8)
     recs1, recs2 = [], []
@@ -141,7 +144,7 @@ def test_junk_batch_gives_the_host_paths_report(cascade_shards, device_seeding):
     for s, eng in enumerate(pipe.nt_engines):
         placed = pipe._spmd["inputs"].placed[(s, "cpu")]
         assert (eng.dfm is placed.dfm) == device_seeding
-        assert (eng._ref_words_dev is placed.ref_words) == device_seeding
+        assert eng._ref_words_dev is placed.ref_words
     res = pipe.run_records(recs1, recs2)
     want = _pipe(cascade_shards, spmd=False, device_seeding=device_seeding).run_records(
         recs1, recs2)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from megapath_tpu_torch.align.seeding_dev import DeviceFM, device_seed_pipeline_loc
+from megapath_tpu_torch.align.seeding_dev import DeviceFM, build_walkers, device_seed_pipeline_loc
 from megapath_tpu_torch.index.fm import build_fm_index
 from megapath_tpu_torch.index.pack import COMPLEMENT, decode_seq, pack_fasta
 from megapath_tpu_torch.io.fastq import FastqRecord
@@ -75,8 +75,8 @@ def _recount(pipe, shards, batch):
     chg = 3 * Lp + 64
     total = 0
     for _, fm in shards:
-        _, pos, _ = device_seed_pipeline_loc(DeviceFM.from_host(fm, CPU), reads, lens, mmp,
-                                             max_seeds, chg, chg)
+        _, pos = device_seed_pipeline_loc(DeviceFM.from_host(fm, CPU),
+                                          *build_walkers(reads, lens), mmp, max_seeds, chg, chg)
         total += len(pos)
     return total
 
